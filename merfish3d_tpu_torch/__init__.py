@@ -1,16 +1,18 @@
-"""PyTorch/CUDA port of the merfish3d_tpu decode stage.
+"""PyTorch/CUDA port of merfish3d_tpu: fiducial round registration and
+the decode stage.
 
 A second package beside :mod:`merfish3d_tpu` (the JAX reference, which
-this package never imports). It runs the hermetic no-decon decode chain —
-generate → convert → per-bit spot probability → normalization
-optimization → lowpass + nearest-codeword decode → component extraction
-→ blank-fraction filter → F1 — on in-memory arrays with torch, numpy,
-scipy and the standard library only.
+this package never imports). It runs the hermetic no-decon chain —
+generate → convert → fiducial round registration (phase correlation) →
+per-bit spot probability → normalization optimization → lowpass +
+nearest-codeword decode → component extraction → blank-fraction filter →
+F1 — on in-memory arrays with torch, numpy, scipy and the standard
+library only.
 
-Every function takes an explicit ``device``. On a CUDA tensor the decode
-hot path launches the hand-written Hopper kernels in ``csrc/`` (built
-with ``nvcc`` at first use, see :mod:`._build`); on a CPU tensor it runs
-their plain torch versions.
+Entry points run on the card (``device="cuda"``) unless the caller asks
+for the CPU. On a CUDA tensor the hot paths launch the hand-written
+Hopper kernels in ``csrc/`` (built with ``nvcc`` at first use, see
+:mod:`._build`); on a CPU tensor they run their plain torch versions.
 """
 
 import torch

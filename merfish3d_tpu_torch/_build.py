@@ -1,11 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-The sources in ``csrc/`` have a plain C interface. They are compiled with
-``nvcc`` for Hopper (``sm_90a``) into one shared library under
-``_build/`` at first use and loaded with :mod:`ctypes`; the library name
-carries a hash of the sources, so an edited source rebuilds. Nothing here
-runs at import time: the CPU tests import every module on machines
-without ``nvcc`` or a card.
+The sources in ``csrc/`` have a plain C interface. At first use each is
+compiled with ``nvcc`` for Hopper (``sm_90a``), all in parallel, and the
+objects are linked into one shared library under ``_build/``, loaded with
+:mod:`ctypes`; the library name carries a hash of the sources, so an
+edited source rebuilds. Nothing here runs at import time: the CPU tests
+import every module on machines without ``nvcc`` or a card.
 
 Each C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises when that is not 0 (a refused launch never runs, and
@@ -27,11 +27,9 @@ from typing import Optional
 _PKG = Path(__file__).parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("decode.cu", "fused_decode.cu")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+SOURCES = ("decode.cu", "fused_decode.cu", "pfft.cu")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
@@ -68,23 +66,43 @@ def _library_path() -> Path:
 def _compile(target: Path) -> None:
     global last_build_log, last_build_seconds
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # PID-unique temp file + atomic rename: concurrent processes never
+    nvcc = find_nvcc()
+    # PID-unique temp files + atomic rename: concurrent processes never
     # load a half-written library
-    tmp = target.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
-    cmd += [str(SRC_DIR / s) for s in SOURCES]
+    tag = f"{os.getpid()}.tmp"
+    objs = [BUILD_DIR / f"{Path(s).stem}.{tag}.o" for s in SOURCES]
+    tmp = target.with_suffix(f".{tag}.so")
     t0 = time.perf_counter()
+    log = []
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(SRC_DIR / s), "-o", str(o)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             )
+            for s, o in zip(SOURCES, objs)
+        ]
+        failed = []
+        for s, p in zip(SOURCES, procs):
+            out = p.communicate()[0]
+            log.append(out)
+            if p.returncode != 0:
+                failed.append(f"{s} ({p.returncode}):\n{out}")
+        if failed:
+            raise RuntimeError("nvcc failed on " + "\n".join(failed))
+        proc = subprocess.run(
+            [nvcc, *ARCH, "-shared", *map(str, objs), "-o", str(tmp)],
+            capture_output=True, text=True,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{proc.stdout}\n{proc.stderr}")
         os.replace(tmp, target)
     finally:
         tmp.unlink(missing_ok=True)
+        for o in objs:
+            o.unlink(missing_ok=True)
     last_build_seconds = time.perf_counter() - t0
-    last_build_log = proc.stdout + proc.stderr
+    last_build_log = "".join(log)
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -97,6 +115,14 @@ def _bind(lib: ctypes.CDLL) -> None:
         p, p, p, i, p, p, p, i, i, i, i, i, f, f, f, p, p, p, p, p,
     ]
     lib.x_lowpass_decode_f32.restype = i
+    lib.dft_trailing_f32.argtypes = [p, p, p, p, p, p, p, ll, i, i, p]
+    lib.dft_trailing_f32.restype = i
+    lib.dft_middle_f32.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
+    lib.dft_middle_f32.restype = i
+    lib.dft_leading_f32.argtypes = [p, p, p, p, p, i, ll, p]
+    lib.dft_leading_f32.restype = i
+    lib.dft_zx_f32.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+    lib.dft_zx_f32.restype = i
 
 
 def kernels() -> ctypes.CDLL:

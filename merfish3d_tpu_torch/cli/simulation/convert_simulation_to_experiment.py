@@ -8,14 +8,16 @@ same arguments and seed give bit-identical arrays: every random draw of
 the reference happens here in the same order, including draws whose
 values this slice does not use.
 
-Not ported: rigid round shifts, smooth deformation and chromatic
-injection (their registration stages are not ported yet); the production
-renderer keeps their random draws so the spot field stays identical.
+The production renderer applies the reference's rigid per-round shifts
+(``round_shift_px``). Not ported: smooth deformation and chromatic
+injection (their registration stages are not ported yet); the renderer
+keeps their random draws, so the output stays identical.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 
@@ -33,6 +35,9 @@ class RawExperiment:
     voxel_size_zyx_um: tuple
     bit_wavelengths_um: np.ndarray  # (bits, 2) excitation, emission
     stage_positions_zyx_um: np.ndarray  # (tiles, 3)
+    # production renderer: the injected rigid shift of each round's field
+    # (px, round 0 the reference), the reference's GT_misregistration.json
+    round_shifts_px_zyx: Optional[np.ndarray] = None  # (rounds, 3)
 
 
 def _gt_columns(gene_ids, genes, spots, tile_idx, spacing) -> dict:
@@ -62,6 +67,7 @@ def generate_raw_experiment(
     n_cells: int = 6,
     axial_sigma_um: float | None = None,
     tile_offset_px=None,
+    round_shift_px: float = 0.0,
 ) -> RawExperiment:
     """Generate a synthetic raw acquisition.
 
@@ -70,7 +76,8 @@ def generate_raw_experiment(
     the PSF's axial extent in µm (None: a 1.4-px sigma on every axis).
     ``tile_offset_px`` set selects the production renderer: one global
     field imaged by ``n_tiles`` tiles at stage offsets
-    ``tile_offset_px * tile_idx``."""
+    ``tile_offset_px * tile_idx``, each moving round's beads and spots
+    shifted rigidly by up to ``round_shift_px`` px (z scaled by 0.25)."""
     rng = np.random.default_rng(seed)
     axial_step = float(voxel_size_zyx_um[0])
     if axial_sigma_um is not None:
@@ -96,6 +103,7 @@ def generate_raw_experiment(
             n_rounds=n_rounds, n_spots=n_spots, n_tiles=n_tiles, spacing=spacing,
             sigma_zyx=sigma_zyx, tile_offset_px=np.asarray(tile_offset_px, np.float64),
             distribution=distribution, n_cells=n_cells, common=common,
+            round_shift_px=float(round_shift_px),
         )
 
     fiducial = np.empty((n_tiles, n_rounds) + tuple(shape), np.uint16)
@@ -161,10 +169,10 @@ def generate_raw_experiment(
 
 def _production_tiles(
     rng, *, shape, matrix, gene_ids, n_bits, n_rounds, n_spots, n_tiles,
-    spacing, sigma_zyx, tile_offset_px, distribution, n_cells, common,
+    spacing, sigma_zyx, tile_offset_px, distribution, n_cells, common, round_shift_px,
 ) -> RawExperiment:
-    """Production-geometry renderer without misregistration: one global
-    spot/bead field imaged by overlapping tiles."""
+    """Production-geometry renderer: one global spot/bead field imaged by
+    overlapping tiles, each moving round rigidly shifted."""
     shape = np.asarray(shape, int)
     offsets_px = [tile_offset_px * t for t in range(n_tiles)]
     extent_px = shape.astype(np.float64) + offsets_px[-1]
@@ -206,10 +214,11 @@ def _production_tiles(
         ]
     )
     bead_amps = rng.uniform(500, 1500, n_beads)
-    # the reference draws a rigid shift and deformation phases per moving
-    # round; with zero misregistration the draws only advance the stream
-    for _r in range(1, n_rounds):
-        rng.uniform(-1.0, 1.0, 3)
+    # per-moving-round rigid shift (z scaled down: stage drift is mostly
+    # lateral); the deformation phases drawn after it are not used here
+    shifts = np.zeros((n_rounds, 3))
+    for r in range(1, n_rounds):
+        shifts[r] = rng.uniform(-1.0, 1.0, 3) * round_shift_px * np.asarray([0.25, 1.0, 1.0])
         rng.uniform(0, 2 * np.pi, 4)
 
     shape_t = tuple(int(v) for v in shape)
@@ -219,14 +228,14 @@ def _production_tiles(
     for tile_idx in range(n_tiles):
         offset = offsets_px[tile_idx]
         stage_positions.append(offset * spacing)
-        local = global_beads - offset
-        inside = np.all((local > -5) & (local < shape.astype(float) + 5), axis=1)
-        fid = _render_bit_volume(shape_t, local[inside], bead_amps[inside], sigma_zyx=sigma_zyx)
         for r in range(n_rounds):
+            local = global_beads + shifts[r] - offset
+            inside = np.all((local > -5) & (local < shape.astype(float) + 5), axis=1)
+            fid = _render_bit_volume(shape_t, local[inside], bead_amps[inside], sigma_zyx=sigma_zyx)
             fiducial[tile_idx, r] = rng.poisson(fid + 40).astype(np.uint16)
         for b in range(n_bits):
             on = matrix[genes, b] > 0
-            local = global_spots[on] - offset
+            local = global_spots[on] + shifts[b // 2] - offset
             inside = np.all((local > -5) & (local < shape.astype(float) + 5), axis=1)
             vol = _render_bit_volume(
                 shape_t, local[inside], amps[on][inside], sigma_zyx=sigma_zyx
@@ -237,5 +246,6 @@ def _production_tiles(
         bits=bits,
         ground_truth=_gt_columns(gene_ids, genes, global_spots, -1, spacing),
         stage_positions_zyx_um=np.asarray(stage_positions),
+        round_shifts_px_zyx=shifts,
         **common,
     )

@@ -13,7 +13,8 @@ from .convert_simulation_to_experiment import RawExperiment
 
 def convert_data(raw: RawExperiment) -> ArrayStore:
     """Readout bits become the store's corrected images (clipped to the
-    uint16 range, as the reference stores them)."""
+    uint16 range, as the reference stores them); fiducial rounds become
+    its corrected fiducial images."""
     corrected = np.clip(raw.bits.astype(np.float32), 0, 65535).astype(np.uint16)
     return ArrayStore.from_arrays(
         gene_ids=raw.gene_ids,
@@ -23,4 +24,5 @@ def convert_data(raw: RawExperiment) -> ArrayStore:
         bit_wavelengths_um=raw.bit_wavelengths_um,
         stage_positions_zyx_um=raw.stage_positions_zyx_um,
         corrected=corrected,
+        fiducial_corrected=raw.fiducial,
     )

@@ -15,7 +15,7 @@ SIM_3D_DEFAULT_MINIMUM_PIXELS = 28
 def decode_pixels(
     store: ArrayStore,
     *,
-    device,
+    device="cuda",
     minimum_pixels: int = SIM_3D_DEFAULT_MINIMUM_PIXELS,
     magnitude_threshold=SIM_DEFAULT_MAGNITUDE_THRESHOLD,
     num_tiles: int = 20,

@@ -7,8 +7,9 @@ so it keeps its state in numpy arrays. :meth:`ArrayStore.from_arrays`
 is also how a test hands the reference datastore's exact state to the
 port.
 
-Images are keyed by integer ``(tile, bit)``, round transforms by
-``(tile, round)``; ``round_of_bit`` links each bit to its 0-based round.
+Readout images are keyed by integer ``(tile, bit)``; fiducial images and
+round transforms by ``(tile, round)``; ``round_of_bit`` links each bit to
+its 0-based round.
 Tables are ``dict[str, np.ndarray]`` of equal-length columns.
 """
 
@@ -41,6 +42,8 @@ class ArrayStore:
         self.num_bits = int(self.codebook_matrix.shape[1])
         self.num_rounds = int(self.round_of_bit.max()) + 1
         self.corrected: dict[tuple[int, int], np.ndarray] = {}  # u16
+        self.fiducial_corrected: dict[tuple[int, int], np.ndarray] = {}  # u16
+        self.fiducial_registered: dict[tuple[int, int], np.ndarray] = {}  # u16
         self.registered: dict[tuple[int, int], np.ndarray] = {}  # u16
         self.feature_predictor: dict[tuple[int, int], np.ndarray] = {}  # u8 k/255
         self.round_transforms: dict[tuple[int, int], np.ndarray] = {}  # 4x4 µm
@@ -61,6 +64,7 @@ class ArrayStore:
         bit_wavelengths_um,
         stage_positions_zyx_um,
         corrected=None,  # (tiles, bits, Z, Y, X) u16
+        fiducial_corrected=None,  # (tiles, rounds, Z, Y, X) u16
         registered=None,  # (tiles, bits, Z, Y, X) u16
         feature_predictor=None,  # (tiles, bits, Z, Y, X) u8
         round_transforms=None,  # (tiles, rounds, 4, 4)
@@ -78,16 +82,17 @@ class ArrayStore:
             bit_wavelengths_um=bit_wavelengths_um,
             stage_positions_zyx_um=np.asarray(stage_positions_zyx_um).reshape(-1, 3),
         )
-        for name, arrays, dtype in (
-            ("corrected", corrected, np.uint16),
-            ("registered", registered, np.uint16),
-            ("feature_predictor", feature_predictor, np.uint8),
+        for name, arrays, dtype, count in (
+            ("corrected", corrected, np.uint16, store.num_bits),
+            ("registered", registered, np.uint16, store.num_bits),
+            ("feature_predictor", feature_predictor, np.uint8, store.num_bits),
+            ("fiducial_corrected", fiducial_corrected, np.uint16, store.num_rounds),
         ):
             if arrays is None:
                 continue
             target = getattr(store, name)
             for t in range(num_tiles):
-                for b in range(store.num_bits):
+                for b in range(count):
                     arr = np.asarray(arrays[t][b])
                     if arr.dtype != dtype:
                         raise TypeError(f"{name} images must be {np.dtype(dtype)}, got {arr.dtype}")

@@ -1,11 +1,9 @@
 """Native host ops (counterpart of ``merfish3d_tpu/native/__init__.py``):
 sparse connected-component labelling and greedy one-to-one matching.
 
-The C++ source is the JAX package's own ``merfish3d_tpu/native/hostops.cpp``,
-compiled by file path with ``g++`` into ``_build/`` at first use — one
-source for both packages, without importing the JAX package. Plain C ABI
-over numpy buffers, loaded with :mod:`ctypes`. Raises when no compiler is
-available.
+The C++ source is this package's own ``csrc/hostops.cpp``, compiled with
+``g++`` into ``_build/`` at first use. Plain C ABI over numpy buffers,
+loaded with :mod:`ctypes`. Raises when no compiler is available.
 """
 
 from __future__ import annotations
@@ -22,7 +20,7 @@ import numpy as np
 
 from ._build import BUILD_DIR
 
-SRC = Path(__file__).resolve().parent.parent / "merfish3d_tpu" / "native" / "hostops.cpp"
+SRC = Path(__file__).resolve().parent / "csrc" / "hostops.cpp"
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()

@@ -1,0 +1,346 @@
+"""Per-axis DFT kernels on (real, imag) float32 pairs (counterpart of
+``merfish3d_tpu/ops/pfft.py`` and of the spectrum-layout policy of
+``merfish3d_tpu/ops/mmfft.py``).
+
+Four kernels, hand-written CUDA in ``csrc/pfft.cu``:
+
+- K6 :func:`dft_trailing` — DFT along the last axis of a (rows, n) pair,
+- K7 :func:`dft_middle` — DFT along axis 1 of a (z, n, x) pair,
+- K8 :func:`dft_leading` — dense DFT along axis 0 of a (n, y, x) pair,
+- K10 :func:`dft_zx` — DFT along axes 0 and 2 of a (z, y, x) pair in one
+  launch.
+
+Spectrum order is a function of the axis length alone, as on the TPU: a
+Cooley-Tukey length n = n1·128 (2 <= n1 <= 24, :func:`supported_ct_axis`)
+keeps the scrambled (n1, 128) layout — position s holds natural frequency
+n1·(s % 128) + s // 128 (:func:`scramble_perm`) — and every other length
+is in natural order. Inverses consume that layout and write natural
+order, with the 1/n scale folded into their constants.
+
+Each entry point launches its kernel on a CUDA tensor (or raises) and
+runs its plain version on a CPU tensor: ``torch.fft`` along the axis,
+then ``index_select`` by :func:`scramble_perm` (inverse: the inverse
+permutation, then ``torch.fft.ifft``, which carries the 1/n scale). The
+shape predicates are the reference's, so every shape takes the kernel
+it takes on the TPU.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from .. import _build
+
+_LANE = 128
+_MAX_N1 = 24
+_ZX_TY = 8
+# shared memory a K10 block may use for one chunk of its (z, x) plane
+_ZX_SMEM_BUDGET = 200 * 1024
+
+# launches of each kernel since the last reset (chip_smoke reads them)
+launch_count = {"dft_trailing": 0, "dft_middle": 0, "dft_leading": 0, "dft_zx": 0}
+
+
+# ------------------------------------------------------------ predicates
+def supported_ct_axis(n: int) -> bool:
+    """Trailing/middle axis lengths the Cooley-Tukey kernels accept."""
+    return n % _LANE == 0 and 2 <= n // _LANE <= _MAX_N1
+
+
+def supported_dense_axis(n: int) -> bool:
+    """Leading (z) lengths of the dense kernels."""
+    return 2 <= n <= 96
+
+
+def zx_supported(shape) -> bool:
+    """Does the fused z+x kernel take axes (0, 2) of this 3D shape? The
+    reference's gate, byte budget included, so the same shapes take it."""
+    if len(shape) != 3:
+        return False
+    nz, ny, nx = (int(v) for v in shape)
+    if not (supported_dense_axis(nz) and supported_ct_axis(nx)):
+        return False
+    if ny % _ZX_TY != 0:
+        return False
+    n1 = nx // _LANE
+    io_bytes = 5 * nz * _ZX_TY * nx * 4
+    live_bytes = 2 * n1 * nz * _ZX_TY * _LANE * 4
+    return io_bytes + live_bytes <= 12 * 1024 * 1024
+
+
+def axis_supported(shape, axis: int) -> bool:
+    """Does a per-axis kernel take this axis of a 3D shape?"""
+    if len(shape) != 3:
+        return False
+    n = shape[axis]
+    axis = axis % 3
+    if axis == 0:
+        return supported_dense_axis(n) and shape[2] % _LANE == 0 and shape[1] % 8 == 0
+    if axis == 1:
+        return supported_ct_axis(n) and shape[2] % _LANE == 0
+    return supported_ct_axis(n) and (shape[0] * shape[1]) % 8 == 0
+
+
+# ---------------------------------------------------------------- layout
+def fft_axis_split(n: int) -> tuple[int, int]:
+    """(n1, 128) for a Cooley-Tukey length, else (1, n): no split, natural
+    order. (The reference splits other lengths above 96 in balance for
+    its einsum FFT; the port transforms them with ``torch.fft`` and keeps
+    natural order there.)"""
+    if supported_ct_axis(n):
+        return n // _LANE, _LANE
+    return 1, n
+
+
+@lru_cache(maxsize=None)
+def scramble_perm(n: int) -> np.ndarray:
+    """perm[s] = natural frequency index stored at position s of a
+    spectrum axis of length n (identity where there is no split)."""
+    n1, n2 = fft_axis_split(n)
+    s = np.arange(n)
+    if n1 == 1:
+        return s
+    return n1 * (s % n2) + s // n2
+
+
+@lru_cache(maxsize=None)
+def _consts_ct(n: int, inverse: bool):
+    """(w1 (n1, n1), twiddle (n1, 128), w2 (128, 128)) complex64 for the
+    Cooley-Tukey kernels; inverse constants are conjugated, with the 1/n
+    scale folded into the twiddle."""
+    n1 = n // _LANE
+    sign = +1.0 if inverse else -1.0
+    k = np.arange(n1)
+    w1 = np.exp(sign * 2j * np.pi * np.outer(k, k) / n1)
+    q = np.arange(_LANE)
+    tw = np.exp(sign * 2j * np.pi * np.outer(k, q) / n)
+    if inverse:
+        tw = tw / n
+    w2 = np.exp(sign * 2j * np.pi * np.outer(q, q) / _LANE)
+    return w1.astype(np.complex64), tw.astype(np.complex64), w2.astype(np.complex64)
+
+
+@lru_cache(maxsize=None)
+def _consts_dense(n: int, inverse: bool) -> np.ndarray:
+    k = np.arange(n)
+    sign = +1.0 if inverse else -1.0
+    w = np.exp(sign * 2j * np.pi * np.outer(k, k) / n)
+    if inverse:
+        w = w / n
+    return w.astype(np.complex64)
+
+
+_device_consts: dict = {}
+
+
+def _on_device(kind: str, n: int, inverse: bool, device) -> tuple[torch.Tensor, ...]:
+    """The constant tables as complex64 tensors on ``device`` (interleaved
+    (re, im) float pairs, as the kernels read them), uploaded once."""
+    key = (kind, n, inverse, str(device))
+    if key not in _device_consts:
+        tables = _consts_ct(n, inverse) if kind == "ct" else (_consts_dense(n, inverse),)
+        _device_consts[key] = tuple(
+            torch.as_tensor(np.ascontiguousarray(t), device=device) for t in tables
+        )
+    return _device_consts[key]
+
+
+# --------------------------------------------------------- plain versions
+def axis_plain(xr, xi, axis: int, inverse: bool, real_output: bool):
+    """One axis of the transform with ``torch.fft``, in this module's
+    spectrum order; ``(yr, None)`` for an inverse with ``real_output``."""
+    z = torch.complex(xr, xi) if xi is not None else xr.to(torch.complex64)
+    perm = scramble_perm(int(xr.shape[axis]))
+    permuted = not np.array_equal(perm, np.arange(len(perm)))
+    if inverse:
+        if permuted:
+            z = z.index_select(axis, torch.as_tensor(np.argsort(perm), device=z.device))
+        z = torch.fft.ifft(z, dim=axis)
+    else:
+        z = torch.fft.fft(z, dim=axis)
+        if permuted:
+            z = z.index_select(axis, torch.as_tensor(perm, device=z.device))
+    yi = None if (inverse and real_output) else z.imag.contiguous()
+    return z.real.contiguous(), yi
+
+
+def dft_trailing_plain(xr, xi=None, *, inverse=False, real_output=False):
+    return axis_plain(xr, xi, 1, inverse, real_output)
+
+
+def dft_middle_plain(xr, xi=None, *, inverse=False, real_output=False):
+    return axis_plain(xr, xi, 1, inverse, real_output)
+
+
+def dft_leading_plain(xr, xi=None, *, inverse=False, real_output=False):
+    return axis_plain(xr, xi, 0, inverse, real_output)
+
+
+def dft_zx_plain(xr, xi=None, *, inverse=False, real_output=False):
+    if inverse:
+        yr, yi = axis_plain(xr, xi, 0, True, False)
+        return axis_plain(yr, yi, 2, True, real_output)
+    yr, yi = axis_plain(xr, xi, 2, False, False)
+    return axis_plain(yr, yi, 0, False, False)
+
+
+# --------------------------------------------------------- CUDA wrappers
+def _check_pair(xr, xi, ndim: int, what: str) -> None:
+    if xr.device.type != "cuda":
+        raise ValueError(f"{what} needs CUDA tensors, got {xr.device}")
+    if xr.ndim != ndim:
+        raise ValueError(f"{what} takes a {ndim}D pair, got shape {tuple(xr.shape)}")
+    for name, t in (("xr", xr), ("xi", xi)):
+        if t is None:
+            continue
+        if t.dtype != torch.float32:
+            raise TypeError(f"{what}: {name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+        if t.device != xr.device or t.shape != xr.shape:
+            raise ValueError(f"{what}: xr and xi differ in device or shape")
+
+
+def _outputs(xr, real_only: bool):
+    yr = torch.empty_like(xr)
+    return yr, (None if real_only else torch.empty_like(xr))
+
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def _launched(status: int, name: str) -> None:
+    _build.check(status, name)
+    launch_count[name] += 1
+
+
+def dft_trailing_cuda(xr, xi=None, *, inverse=False, real_output=False):
+    """K6 on CUDA tensors; same contract as :func:`dft_trailing`."""
+    _check_pair(xr, xi, 2, "dft_trailing")
+    rows, n = xr.shape
+    if not supported_ct_axis(n):
+        raise ValueError(f"dft_trailing: length {n} is not n1*128 with 2 <= n1 <= 24")
+    w1, tw, w2 = _on_device("ct", n, bool(inverse), xr.device)
+    yr, yi = _outputs(xr, inverse and real_output)
+    status = _build.kernels().dft_trailing_f32(
+        xr.data_ptr(), _ptr(xi), yr.data_ptr(), _ptr(yi), w1.data_ptr(), tw.data_ptr(),
+        w2.data_ptr(), rows, n // _LANE, int(bool(inverse)), _build.stream_handle(xr.device),
+    )
+    _launched(status, "dft_trailing")
+    return yr, yi
+
+
+def dft_middle_cuda(xr, xi=None, *, inverse=False, real_output=False):
+    """K7 on CUDA tensors; same contract as :func:`dft_middle`."""
+    _check_pair(xr, xi, 3, "dft_middle")
+    nz, n, nx = xr.shape
+    if not supported_ct_axis(n) or nx % _LANE != 0:
+        raise ValueError(f"dft_middle: shape {tuple(xr.shape)} needs n1*128 on axis 1, x % 128 == 0")
+    w1, tw, w2 = _on_device("ct", n, bool(inverse), xr.device)
+    yr, yi = _outputs(xr, inverse and real_output)
+    status = _build.kernels().dft_middle_f32(
+        xr.data_ptr(), _ptr(xi), yr.data_ptr(), _ptr(yi), w1.data_ptr(), tw.data_ptr(),
+        w2.data_ptr(), nz, n // _LANE, nx, int(bool(inverse)), _build.stream_handle(xr.device),
+    )
+    _launched(status, "dft_middle")
+    return yr, yi
+
+
+def dft_leading_cuda(xr, xi=None, *, inverse=False, real_output=False):
+    """K8 on CUDA tensors; same contract as :func:`dft_leading`."""
+    _check_pair(xr, xi, 3, "dft_leading")
+    n = xr.shape[0]
+    if not supported_dense_axis(n):
+        raise ValueError(f"dft_leading: length {n} is outside 2..96")
+    (w,) = _on_device("dense", n, bool(inverse), xr.device)
+    yr, yi = _outputs(xr, inverse and real_output)
+    status = _build.kernels().dft_leading_f32(
+        xr.data_ptr(), _ptr(xi), yr.data_ptr(), _ptr(yi), w.data_ptr(), n,
+        xr[0].numel(), _build.stream_handle(xr.device),
+    )
+    _launched(status, "dft_leading")
+    return yr, yi
+
+
+def zx_chunks(nz: int, nx: int) -> tuple[int, int]:
+    """(z rows per x-pass chunk, columns per z-pass chunk) of a K10 block:
+    the largest that fit its shared-memory budget, so any plane that
+    :func:`zx_supported` admits runs in one launch."""
+    zc = max(1, min(nz, _ZX_SMEM_BUDGET // (nx * 8)))
+    sc = min(nx, max(32, (_ZX_SMEM_BUDGET // (nz * 8)) // 32 * 32))
+    return zc, sc
+
+
+def dft_zx_cuda(xr, xi=None, *, inverse=False, real_output=False):
+    """K10 on CUDA tensors; same contract as :func:`dft_zx`."""
+    _check_pair(xr, xi, 3, "dft_zx")
+    nz, ny, nx = xr.shape
+    if not (supported_dense_axis(nz) and supported_ct_axis(nx)):
+        raise ValueError(f"dft_zx: shape {tuple(xr.shape)} needs z in 2..96 and x = n1*128")
+    if inverse and xi is None:
+        xi = torch.zeros_like(xr)
+    w1, tw, w2 = _on_device("ct", nx, bool(inverse), xr.device)
+    (wz,) = _on_device("dense", nz, bool(inverse), xr.device)
+    # the inverse's z pass writes a full complex intermediate, so its
+    # imaginary channel needs room even when only the real output is kept
+    yr, yi = _outputs(xr, False)
+    zc, sc = zx_chunks(nz, nx)
+    status = _build.kernels().dft_zx_f32(
+        xr.data_ptr(), _ptr(xi), yr.data_ptr(), yi.data_ptr(), w1.data_ptr(), tw.data_ptr(),
+        w2.data_ptr(), wz.data_ptr(), nz, ny, nx // _LANE, zc, sc, int(bool(inverse)),
+        int(bool(inverse and real_output)), _build.stream_handle(xr.device),
+    )
+    _launched(status, "dft_zx")
+    return yr, (None if (inverse and real_output) else yi)
+
+
+# ------------------------------------------------------------ entry points
+def _dispatch(cuda_fn, plain_fn, xr, xi, inverse, real_output):
+    if xr.device.type == "cuda":
+        return cuda_fn(xr, xi, inverse=inverse, real_output=real_output)
+    if xr.device.type != "cpu":
+        raise ValueError(f"unsupported device {xr.device}")
+    return plain_fn(xr, xi, inverse=inverse, real_output=real_output)
+
+
+def dft_trailing(xr, xi=None, *, inverse=False, real_output=False):
+    """DFT along the last axis of a 2D (rows, n) pair (K6). Returns
+    ``(yr, yi)``; ``yi`` is None for an inverse with ``real_output``."""
+    return _dispatch(dft_trailing_cuda, dft_trailing_plain, xr, xi, inverse, real_output)
+
+
+def dft_middle(xr, xi=None, *, inverse=False, real_output=False):
+    """DFT along axis 1 of a 3D (z, n, x) pair (K7)."""
+    return _dispatch(dft_middle_cuda, dft_middle_plain, xr, xi, inverse, real_output)
+
+
+def dft_leading(xr, xi=None, *, inverse=False, real_output=False):
+    """Dense DFT along axis 0 of a 3D (n, y, x) pair, natural order (K8)."""
+    return _dispatch(dft_leading_cuda, dft_leading_plain, xr, xi, inverse, real_output)
+
+
+def dft_zx(xr, xi=None, *, inverse=False, real_output=False):
+    """DFT along axes 0 and 2 of a 3D pair in one pass (K10); the inverse
+    takes the z axis first and the x axis last, so ``real_output``
+    applies to x."""
+    return _dispatch(dft_zx_cuda, dft_zx_plain, xr, xi, inverse, real_output)
+
+
+def dft_axis_3d(xr, xi, axis: int, *, inverse=False, real_output=False):
+    """DFT along ``axis`` of a 3D pair; the caller checked
+    :func:`axis_supported`."""
+    axis = axis % 3
+    if axis == 2:
+        z, y, n = xr.shape
+        yr, yi = dft_trailing(
+            xr.reshape(z * y, n), None if xi is None else xi.reshape(z * y, n),
+            inverse=inverse, real_output=real_output,
+        )
+        return yr.reshape(z, y, n), None if yi is None else yi.reshape(z, y, n)
+    if axis == 1:
+        return dft_middle(xr, xi, inverse=inverse, real_output=real_output)
+    return dft_leading(xr, xi, inverse=inverse, real_output=real_output)

@@ -8,8 +8,8 @@ the identity passes through unchanged. A pure translation (identity
 linear part) — what fiducial registration stores for rounds that only
 drifted, including the sub-pixel shifts it finds between independently
 noised copies of one bead field — is applied with the reference's
-separable order-1 translate (``merfish3d_tpu/ops/warp.py:translate_volume``,
-zero fill). Any other affine, or a flow field, needs the general
+separable order-1 translate (:func:`..ops.warp.translate_volume`, zero
+fill). Any other affine, or a flow field, needs the general
 resampler, which is not ported: it raises instead of passing the image
 through.
 """
@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..datastore.array_store import ArrayStore
+from ..ops.warp import transform_to_pixel, translate_volume
 
 
 def bit_transform_zyx_um(store: ArrayStore, tile: int, bit: int) -> np.ndarray:
@@ -33,35 +34,6 @@ def bit_transform_zyx_um(store: ArrayStore, tile: int, bit: int) -> np.ndarray:
         store.chromatic_transform(store.bit_wavelengths_um[bit][1]), np.float32
     )
     return np.linalg.inv(chromatic) @ round_t
-
-
-def transform_to_pixel(transform_zyx_um, spacing_zyx_um) -> tuple[np.ndarray, np.ndarray]:
-    """Physical 4x4 (reference → moving) → pixel matrix and pull offset."""
-    transform = np.asarray(transform_zyx_um, dtype=np.float32)
-    spacing = np.asarray(spacing_zyx_um, dtype=np.float32)
-    linear = transform[:3, :3]
-    matrix_px = (linear * spacing[np.newaxis, :]) / spacing[:, np.newaxis]
-    offset_px = transform[:3, 3] / spacing
-    return matrix_px, offset_px
-
-
-def translate_volume(vol: torch.Tensor, shift_pull_px) -> torch.Tensor:
-    """Sub-pixel translation ``out[p] = vol[p + shift]`` with zero fill:
-    one linear blend of two rolled copies per axis, exactly as order-1
-    ``map_coordinates`` in constant mode."""
-    out = vol.to(torch.float32)
-    for ax in range(vol.ndim):
-        n = vol.shape[ax]
-        s = np.float32(shift_pull_px[ax])
-        i = int(np.floor(s))
-        f = float(s - np.float32(i))
-        shape = [1] * vol.ndim
-        shape[ax] = n
-        pos = torch.arange(n, device=vol.device).reshape(shape) + i
-        a = torch.where((pos >= 0) & (pos <= n - 1), torch.roll(out, -i, ax), 0.0)
-        b = torch.where((pos + 1 >= 0) & (pos + 1 <= n - 1), torch.roll(out, -(i + 1), ax), 0.0)
-        out = float(np.float32(1.0) - np.float32(f)) * a + f * b
-    return out
 
 
 def warp_bit_images_to_reference(
@@ -85,5 +57,5 @@ def warp_bit_images_to_reference(
             )
         if out is images:
             out = images.clone()
-        out[i] = translate_volume(images[i], offset)
+        out[i] = translate_volume(images[i], torch.as_tensor(offset, device=images.device))
     return out

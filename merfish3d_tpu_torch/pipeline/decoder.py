@@ -109,7 +109,7 @@ class PixelDecoder:
         self,
         store: ArrayStore,
         *,
-        device,
+        device="cuda",
         merfish_bits: Optional[int] = None,
         magnitude_threshold: tuple[float, float] = (1.5, 10.0),
         minimum_pixels: int = 16,

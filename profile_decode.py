@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
-"""Where the time of the port's decode stage goes, at production geometry
-on one GPU.
+"""Where the time of the port's fiducial registration and decode stage
+goes, at production geometry on one GPU.
 
     python3 profile_decode.py
 
 Run from the root of a checkout, on a machine with a CUDA device. It makes
 the production tile as ``chip_smoke.py`` does (one (16, 1024, 1024) tile x
-16 bits, 2400 spots, seed 21), then runs the decode stage (normalization
+16 bits, 2400 spots, 8 fiducial rounds shifted by up to 2 px, seed 21).
+First the fiducial registration of its 7 moving rounds runs twice under
+``torch.profiler``: wall time, device busy share and device ops (the
+second run is read; the first also uploads constants and plans
+``torch.fft``). Then it runs the decode stage (normalization
 optimization, 3 iterations, + final decode) three times in one process,
 each on a freshly registered store:
 
@@ -103,6 +107,28 @@ def device_busy_seconds(events) -> float:
     return busy * 1e-6
 
 
+def profile_registration(raw) -> None:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from merfish3d_tpu_torch.cli.simulation.convert_to_datastore import convert_data
+    from merfish3d_tpu_torch.pipeline.registration import DataRegistration
+
+    log = chip_smoke.log
+    reg = DataRegistration(convert_data(raw), device="cuda")
+    for run in (1, 2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            reg._generate_registrations(0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy = device_busy_seconds(prof.events())
+        log(f"registration run {run}, profiled: 7 moving rounds in {wall:.4f} s "
+            f"({wall / 7:.4f} s a round); device busy {busy:.4f} s = {busy / wall:.4f} of the wall")
+    log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=20))
+
+
 def main() -> int:
     import torch
 
@@ -118,6 +144,7 @@ def main() -> int:
     t0 = time.perf_counter()
     raw = chip_smoke.production_raw()
     log(f"generator {time.perf_counter() - t0:.3f} s")
+    profile_registration(raw)
 
     _, t_opt, t_final = chip_smoke.decode_stage(chip_smoke.registered_store(raw))
     log(f"run 1, unsectioned: optimization {t_opt:.3f} s + final {t_final:.3f} s "

@@ -140,3 +140,63 @@ def test_decode_volume_on_card_matches_cpu(cuda):
     for a, b in zip(gpu[1:], cpu[1:]):
         np.testing.assert_allclose(a.astype(np.float32), b.astype(np.float32),
                                    rtol=2**-10, atol=2**-14)
+
+
+# ------------------------------------------------------------ DFT kernels
+def _pair(rng, shape, cuda, complex_in=True):
+    xr = torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device=cuda)
+    xi = torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device=cuda) if complex_in else None
+    return xr, xi
+
+
+def _assert_pair_close(got, want, scale):
+    """The reference's own DFT tolerance (tests/test_pfft.py): 3e-5 x max|X|."""
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if g is not None:
+            assert (g - w).abs().max().item() <= 3e-5 * scale
+
+
+_DFT_CASES = [
+    ("dft_trailing", (6 * 40 + 1, 384)),  # ragged row block
+    ("dft_trailing", (16, 3072)),  # n1 = 24
+    ("dft_middle", (3, 256, 384)),
+    ("dft_middle", (2, 3072, 128)),  # the largest slab, 192 KB of shared memory
+    ("dft_leading", (96, 8, 136)),
+    ("dft_leading", (5, 16, 128)),
+    ("dft_zx", (16, 24, 896)),  # the production crop's plane, in one chunk
+    ("dft_zx", (96, 8, 512)),  # a plane larger than shared memory: z and x chunks
+    ("dft_zx", (18, 8, 3072)),
+]
+
+
+@pytest.mark.parametrize("name,shape", _DFT_CASES)
+@pytest.mark.parametrize("complex_in", [False, True])
+def test_dft_kernels_match_plain(cuda, name, shape, complex_in):
+    from merfish3d_tpu_torch.ops import pfft
+
+    rng = np.random.default_rng(5)
+    kernel, plain = getattr(pfft, f"{name}_cuda"), getattr(pfft, f"{name}_plain")
+    xr, xi = _pair(rng, shape, cuda, complex_in)
+    fk, fp = kernel(xr, xi), plain(xr, xi)
+    torch.cuda.synchronize()
+    _assert_pair_close(fk, fp, max(fp[0].abs().max().item(), fp[1].abs().max().item()))
+    for real_output in (False, True):
+        ik = kernel(*fp, inverse=True, real_output=real_output)
+        ip = plain(*fp, inverse=True, real_output=real_output)
+        torch.cuda.synchronize()
+        _assert_pair_close(ik, ip, xr.abs().max().item())
+        assert (ik[0] - xr).abs().max().item() <= 3e-5 * xr.abs().max().item()
+
+
+def test_dft_wrappers_refuse_bad_input(cuda):
+    from merfish3d_tpu_torch.ops import pfft
+
+    with pytest.raises(ValueError):
+        pfft.dft_trailing_cuda(torch.zeros((8, 200), device=cuda))
+    with pytest.raises(ValueError):
+        pfft.dft_middle_cuda(torch.zeros((2, 256, 100), device=cuda))
+    with pytest.raises(ValueError):
+        pfft.dft_zx_cuda(torch.zeros((2, 8, 256)))  # CPU tensor
+    with pytest.raises(TypeError):
+        pfft.dft_leading_cuda(torch.zeros((8, 8, 128), device=cuda, dtype=torch.float64))

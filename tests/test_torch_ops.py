@@ -299,3 +299,25 @@ def test_greedy_match_matches_native():
     np.testing.assert_array_equal(tmatch(src, dst, dist, 40, 30), jmatch(src, dst, dist, 40, 30))
     with pytest.raises(ValueError):
         tmatch(src, dst, dist, 40, 10)
+
+
+# ------------------------------------------------------------ port sources
+def test_port_sources_stand_alone():
+    """The port and its smoke import no JAX and nothing of the JAX package,
+    and name no path into it: they run where neither is installed."""
+    import re
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    files = [root / "chip_smoke.py", *sorted((root / "merfish3d_tpu_torch").rglob("*.py")),
+             *sorted((root / "merfish3d_tpu_torch" / "csrc").glob("*"))]
+    imports = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|merfish3d_tpu)\b", re.M)
+    paths = re.compile(r"""["'/]merfish3d_tpu["'/]|"merfish3d_tpu"|\bmerfish3d_tpu\.(?!\w*torch)""")
+    assert len(files) > 20
+    for f in files:
+        text = f.read_text()
+        assert not imports.search(text), f"{f.name} imports JAX or the JAX package"
+        code = "\n".join(l for l in text.splitlines() if not l.lstrip().startswith(("#", "//")))
+        code = re.sub(r'"""[\s\S]*?"""', "", code)  # docstrings may name the reference
+        code = re.sub(r"merfish3d_tpu/[\w/]+\.py:\d+", "", code)  # file:line citations
+        assert not paths.search(code), f"{f.name} reaches into merfish3d_tpu/"

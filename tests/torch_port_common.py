@@ -95,6 +95,7 @@ def port_store_from_reference(ref: dict):
         bit_wavelengths_um=ref["bit_wavelengths_um"],
         stage_positions_zyx_um=ref["stage_zyx_um"][None],
         corrected=ref["corrected"][None],
+        fiducial_corrected=ref["raw_fiducial"][None],
         registered=ref["registered"][None],
         feature_predictor=ref["probability_u8"][None],
         round_transforms=ref["round_transforms"][None],
