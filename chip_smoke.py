@@ -14,30 +14,40 @@ Run from the root of a checkout. Phases, each raising on failure:
    the whole production tile; K10 and K7 on the (16, 896, 896) stage-2
    crop of a production fiducial round; K6, K7 and K8 on a (32, 1920,
    1920) crop of the camera pair; K10 at the largest plane its gate
-   admits), with timings (CUDA events), the bound of each and the time
-   of one ``torch.fft`` call computing the same transform;
-4. the hermetic F1 cases uniform-0.315um-nodecon and cells-0.315um-nodecon
-   on CUDA (fiducial registration + decode), held to their pinned F1
-   ±0.02;
+   admits; K10, K9, K4 and K5 on the first RLGC iteration of a production
+   readout bit padded to (32, 1152, 1152)), with timings (CUDA events), the
+   bound of each and the time of one ``torch`` call or composition
+   computing the same function;
+4. the hermetic F1 cases uniform/cells-0.315um-nodecon (fiducial
+   registration + decode) and uniform/cells-0.315um-decon (RLGC on the
+   readout bits, 12 iterations, as ``tests/f1_matrix_common.py`` runs
+   them) on CUDA, held to their pinned F1 ±0.02;
 5. the production geometry — one (16, 1024, 1024) tile × 16 bits, 2400
    spots, 8 fiducial rounds rigidly shifted by up to 2 px — through the
-   port's fiducial registration and then the decode stage on CUDA: every
-   recovered round shift within 0.3 px of the injected one, F1 >= 0.5,
-   with wall times, voxels/s and peak device memory. Cut to what is
-   ported: no deconvolution, no deformation, no chromatic aberration;
+   port's fiducial registration and then the decode stage on CUDA, once
+   without deconvolution and once with RLGC on the readout bits (10
+   iterations, the reference's production setting): every recovered
+   round shift within 0.3 px of the injected one, F1 >= 0.5, with wall
+   times, voxels/s, the decon's iterations and ms per iteration and
+   volume, and peak device memory. Cut to what is ported: no fiducial
+   deconvolution (the reference's production case has none either), no
+   deformation, no chromatic aberration;
 6. the camera geometry — one (32, 2048, 2048) bead pair with a known
    shift — through ``register_pair_to_fixed`` on CUDA, recovered within
    0.3 px.
 
-The launch counts of the seven kernels are zeroed before phase 4 and
-read after phase 6: every kernel must have run on the main path. The last
-lines are the kernel table as JSON and the result line
+The launch counts of the ten kernels are zeroed before phase 4 and read
+after phase 6: every kernel must have run on the main path. Then one
+production bit is solved twice more, through the kernels and through
+their plain versions, from the same generator seed: the two must agree.
+The last lines are the kernel table as JSON and the result line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 without a CUDA device or outside a checkout.
 """
 
 from __future__ import annotations
 
+import contextlib
 import importlib.util
 import json
 import shutil
@@ -49,7 +59,11 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-HERMETIC_PINS = {"uniform": 0.9480, "cells": 0.9474}  # tests/test_f1_matrix.py
+# tests/test_f1_matrix.py: (distribution, decon) -> pinned F1
+HERMETIC_PINS = {
+    ("uniform", False): 0.9480, ("cells", False): 0.9474,
+    ("uniform", True): 0.9573, ("cells", True): 0.9655,
+}
 F1_TOLERANCE = 0.02
 FLOAT_RTOL = 1e-4  # f32 kernel outputs vs plain: max |err| <= 1e-4 * max |x|
 F16_RTOL = 2.0**-10  # f16 outputs: at most one f16 rounding step apart
@@ -57,6 +71,20 @@ ID_MISMATCH_MAX = 1e-5  # fraction of decoded ids allowed to differ ...
 NEAR_TIE = 1e-4  # ... and only where the top-2 gap or a threshold margin < this
 DFT_RTOL = 3e-5  # DFT outputs vs plain: max |err| <= 3e-5 * max |X| (tests/test_pfft.py)
 SHIFT_TOL_PX = 0.3  # recovered round shifts vs the injected ones (production_case.py)
+KLD_RTOL = 1e-5  # K4's KLDs (FP64 fold of FP32 terms) vs the plain f32 chain
+RATIO_ULPS = 2  # K4's ratios vs plain: the same division, at most 2 ulp apart
+# One production bit solved through the kernels and through the plain
+# versions from one seed. The consensus gate where(c < 0, recon, recon*ht)
+# is discontinuous: voxels whose consensus is within rounding of zero take
+# either side in any two FP32 implementations. Two plain solves of this
+# bit from the same splits, cuFFT on an H100 against pocketfft on its
+# host, differ by 4.4e-3 max |delta| / max |recon| and 1.4e-3 in L2 after
+# 10 iterations, 9.6e-3 / 1.6e-3 after one (``profile_decode.py
+# --solve-routes``). Equal iteration counts are required, and about 4x
+# that floor.
+SOLVE_MAX_RTOL = 2e-2
+SOLVE_L2_RTOL = 5e-3
+PRODUCTION_DECON_ITERS = 10
 CAMERA_SHIFT_PX = (0.4, 1.7, -1.3)
 # the card's published peaks (H100 SXM): HBM bytes/s and FP32 flop/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -399,6 +427,138 @@ def check_dft_kernels(raw, camera_fixed) -> list[dict]:
     return rows
 
 
+def production_psf(raw, bit: int = 0):
+    """The readout PSF the production store gives ``bit`` (Gaussian,
+    (15, 15, 15), at its emission wavelength; ``convert_data``)."""
+    from merfish3d_tpu_torch.models.psf import make_channel_psfs
+
+    return make_channel_psfs([float(raw.bit_wavelengths_um[bit][1])], na=raw.na, ri=raw.ri,
+                             voxel_size_zyx_um=raw.voxel_size_zyx_um, shape_zyx=(15, 15, 15))[0]
+
+
+def _ulps(a, b):
+    """|a - b| in units of the last place of b (float32)."""
+    import torch
+
+    spacing = torch.nextafter(b.abs(), torch.full_like(b, float("inf"))) - b.abs()
+    return ((a - b).abs() / spacing).max().item()
+
+
+def check_rlgc_kernels(raw) -> list[dict]:
+    """K10, K9, K4 and K5 at the RLGC shape: production readout bit 0
+    padded to (32, 1152, 1152) with its PSF, through the first iteration
+    of its solve. K10 and K9 run on the bit less its mean (with the mean
+    in, max|X| is the DC bin and the limit as large as a signal bin)."""
+    import torch
+
+    from merfish3d_tpu_torch.ops import fftutils, pfft, rlgc
+    from merfish3d_tpu_torch.ops import rlgc_kernels as rk
+
+    dev = torch.device("cuda")
+    psf = production_psf(raw)
+    bit = torch.as_tensor(raw.bits[0, 0], device=dev).to(torch.float32)
+    pad_width = fftutils.linear_fft_pad_width(tuple(bit.shape), psf.shape)
+    padded = fftutils.pad_symmetric(bit, pad_width).contiguous()
+    shape = tuple(padded.shape)
+    require(shape == (32, 1152, 1152), f"production bit padded to {shape}")
+    require(pfft.zx_supported(shape) and pfft.mid_conv_supported(shape)
+            and rk.fused_elementwise_supported(shape), f"{shape} should take K10, K9, K4 and K5")
+    solve = rlgc._prepare_solve(shape, psf, pad_width, dev)
+    rows = []
+    voxels = float(np.prod(shape))
+
+    # K10 at the RLGC shape: logged, its row stays the registration crop's
+    centered = (padded - padded.mean()).contiguous()
+    _, spec = check_dft("dft_zx (K10)", pfft.dft_zx_cuda, pfft.dft_zx_plain,
+                        lambda z: torch.fft.fftn(z, dim=(0, 2)), centered, None, (2, 0),
+                        "merfish3d_tpu/ops/pfft.py:660", record=False)
+
+    log(f"K9 dft_mid_conv_f32 on the K10 spectrum of the bit {shape}, times its OTF")
+    hr, hi = solve.otf
+    k, p = pfft.dft_mid_conv_cuda(*spec, hr, hi), pfft.dft_mid_conv_plain(*spec, hr, hi)
+    torch.cuda.synchronize()
+    scale = max(p[0].abs().max().item(), p[1].abs().max().item())
+    err = max((k[0] - p[0]).abs().max().item(), (k[1] - p[1]).abs().max().item())
+    log(f"  max abs err {err:.3e}, relative to max|y| {err / scale:.3e}")
+    require(err <= DFT_RTOL * scale, "K9 disagrees with the plain version")
+    del k, p
+    ms = cuda_ms(lambda: pfft.dft_mid_conv_cuda(*spec, hr, hi))
+    plain_ms = cuda_ms(lambda: pfft.dft_mid_conv_plain(*spec, hr, hi))
+    zc, hc = torch.complex(*spec), torch.complex(hr, hi)
+    library_ms = cuda_ms(lambda: torch.fft.ifft(torch.fft.fft(zc, dim=1) * hc, dim=1))
+    del zc, hc
+    # reads x and h, writes y (complex pairs); a y FFT each way and a complex product
+    b = bound(voxels * 24, voxels * (10.0 * np.log2(shape[1]) + 6.0))
+    log(f"  time: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, torch.fft composition (fft along "
+        f"y, product, ifft; no single call computes K9) {library_ms:.3f} ms, bound "
+        f"{b['bound_ms']:.3f} ms ({b['bound_by']})")
+    rows.append(dict(name="dft_mid_conv (K9)", route="cuda", source="merfish3d_tpu_torch/csrc/pfft.cu",
+                     replaces="merfish3d_tpu/ops/pfft.py:536", max_abs_err=err, ms=ms,
+                     plain_ms=plain_ms, **b, library_ms=library_ms))
+    del spec, centered
+
+    # the first iteration of the bit's solve (its pipeline seed, 7)
+    slot = rlgc._load(0, padded, solve)
+    hu = fftutils.fft_conv_full(slot.recon, solve.otf)
+    split1 = rlgc.binomial_split(padded, 7, 0)
+    split2 = padded - split1
+    log(f"K4 ratio_kld_f32 on the first iteration's Hu and splits {shape}")
+    k, p = rk.ratio_kld_cuda(hu, split1, split2, pad_width), rk.ratio_kld_plain(hu, split1, split2, pad_width)
+    torch.cuda.synchronize()
+    ulps = max(_ulps(k[0], p[0]), _ulps(k[1], p[1]))
+    kld_rel = max(abs(a.item() - b.item()) / abs(b.item()) for a, b in zip(k[2], p[2]))
+    err = max((k[0] - p[0]).abs().max().item(), (k[1] - p[1]).abs().max().item())
+    log(f"  ratios: max {ulps:.1f} ulp apart (max abs {err:.3e}); KLDs {[a.item() for a in k[2]]} vs "
+        f"plain {[a.item() for a in p[2]]}, max relative difference {kld_rel:.3e}")
+    require(ulps <= RATIO_ULPS, "K4 ratios disagree with the plain version")
+    require(kld_rel <= KLD_RTOL, "K4 KLDs disagree with the plain version")
+    r1, r2 = k[0], k[1]
+    del k, p
+    ms = cuda_ms(lambda: rk.ratio_kld_cuda(hu, split1, split2, pad_width))
+    plain_ms = cuda_ms(lambda: rk.ratio_kld_plain(hu, split1, split2, pad_width))
+    # reads Hu and both splits, writes both ratios; ~20 FP32 operations a
+    # voxel, each log counted as one
+    b = bound(voxels * 20, voxels * 20)
+    log(f"  time: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b['bound_ms']:.3f} ms "
+        f"({b['bound_by']}); no single torch call computes it")
+    rows.append(dict(name="ratio_kld_f32 (K4)", route="cuda", source="merfish3d_tpu_torch/csrc/rlgc.cu",
+                     replaces="merfish3d_tpu/ops/rlgc_kernels.py:88", max_abs_err=err, ms=ms,
+                     plain_ms=plain_ms, **b, library_ms=None))
+
+    gr, gi = fftutils.fft_conv_spec(r1, r2, solve.otf_t)
+    ht1, ht2 = rlgc._split_ht(gr, gi, solve.update_norm)
+    consensus = fftutils.fft_conv_full((ht1 - 1.0) * (ht2 - 1.0), solve.otf2)
+    ht = ht1 + ht2
+    del gr, gi, ht1, ht2, r1, r2, hu, split1, split2
+    # recon after one update, prev the flat start: the select has two
+    # different sources
+    recon = fftutils.enforce_symmetric_boundary(torch.where(consensus < 0, slot.recon, slot.recon * ht),
+                                                pad_width)
+    prev = slot.recon
+    err = 0.0
+    for restore in (False, True):
+        log(f"K5 update_select_f32 on the iteration's consensus, recon, prev and ht, restore {restore}")
+        flag = torch.tensor(restore, device=dev)
+        k = rk.update_select_cuda(consensus, recon, prev, ht, flag, pad_width)
+        p = rk.update_select_plain(consensus, recon, prev, ht, flag, pad_width)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, c) for a, c in zip(k[:2], p[:2]))
+        stats_k, stats_p = [t.item() for t in k[2:]], [t.item() for t in p[2:]]
+        log(f"  selects equal: {same}; (count, max new, max |delta|) {stats_k} vs plain {stats_p}")
+        require(same and stats_k == stats_p, "K5 disagrees with the plain version")
+        del k, p
+    ms = cuda_ms(lambda: rk.update_select_cuda(consensus, recon, prev, ht, flag, pad_width))
+    plain_ms = cuda_ms(lambda: rk.update_select_plain(consensus, recon, prev, ht, flag, pad_width))
+    # reads four volumes, writes two; ~8 FP32 operations a voxel
+    b = bound(voxels * 24, voxels * 8)
+    log(f"  time: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b['bound_ms']:.3f} ms "
+        f"({b['bound_by']}); no single torch call computes it")
+    rows.append(dict(name="update_select_f32 (K5)", route="cuda", source="merfish3d_tpu_torch/csrc/rlgc.cu",
+                     replaces="merfish3d_tpu/ops/rlgc_kernels.py:160", max_abs_err=err, ms=ms,
+                     plain_ms=plain_ms, **b, library_ms=None))
+    return rows
+
+
 def production_raw():
     """The production tile's raw data (numpy generator, seed 21): one
     (16, 1024, 1024) tile x 16 bits, 2400 spots, 80 genes + 10 blanks, 8
@@ -436,17 +596,23 @@ def camera_pair(seed: int = 7):
 
 
 # --------------------------------------------------------------- phase 4/5
-def registered_store(raw):
-    """ArrayStore of ``raw`` after the DoG readout stage, on CUDA."""
+def registered_store(raw, **decon):
+    """ArrayStore of ``raw`` after the readout stage, on CUDA; no
+    deconvolution unless ``decon`` asks for it."""
     from merfish3d_tpu_torch.cli.simulation.convert_to_datastore import convert_data
     from merfish3d_tpu_torch.pipeline.registration import DataRegistration
 
     store = convert_data(raw)
-    DataRegistration(store, device="cuda").register_all_tiles()
+    kw = dict(decon_fiducial=False, decon_readout=False)
+    kw.update(decon)
+    DataRegistration(store, device="cuda", **kw).register_all_tiles()
     return store
 
 
-def hermetic_case(distribution: str) -> dict:
+def hermetic_case(distribution: str, decon: bool) -> dict:
+    """A hermetic F1 case on CUDA; with ``decon``, RLGC on the readout
+    bits for 12 iterations and none on the fiducials
+    (``tests/f1_matrix_common.py``)."""
     from merfish3d_tpu_torch.cli.simulation.calculate_f1 import match_spots_f1
     from merfish3d_tpu_torch.cli.simulation.convert_simulation_to_experiment import (
         generate_raw_experiment,
@@ -458,8 +624,9 @@ def hermetic_case(distribution: str) -> dict:
         n_genes=20, n_blanks=4, seed=11, voxel_size_zyx_um=(0.315, 0.098, 0.098),
         distribution=distribution, axial_sigma_um=0.44,
     )
+    store = registered_store(raw, decon_readout=decon, decon_max_iters=12)
     table = decode_pixels(
-        registered_store(raw), device="cuda", minimum_pixels=4,
+        store, device="cuda", minimum_pixels=4,
         magnitude_threshold=(0.9, 10.0), lowpass_sigma=(3.0, 1.0, 1.0), num_tiles=1,
         num_iterations=2,
     )
@@ -500,7 +667,41 @@ def round_shift_residual_px(store, raw) -> np.ndarray:
     return np.abs(rec - raw.round_shifts_px_zyx)
 
 
-def production_case(raw) -> dict:
+class DeconRecorder:
+    """Wraps the registration stage's ``rlgc_batch`` to record each
+    solve's wall time (synchronized) and per-volume iteration counts; the
+    solves themselves are unchanged."""
+
+    def __init__(self):
+        self.seconds = 0.0
+        self.iters: list[int] = []
+
+    def __enter__(self):
+        import torch
+
+        from merfish3d_tpu_torch.pipeline import registration
+
+        self._module, self._fn = registration, registration.rlgc_batch
+
+        def recorded(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, iters = self._fn(*args, return_iters=True, **kwargs)
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            self.iters += list(iters)
+            return out
+
+        registration.rlgc_batch = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self._module.rlgc_batch = self._fn
+
+
+def production_case(raw, *, decon: bool) -> dict:
+    """The production tile through registration (and, with ``decon``, RLGC
+    on its readout bits, 10 iterations) and the decode stage on CUDA."""
     import torch
 
     from merfish3d_tpu_torch.cli.simulation.calculate_f1 import match_spots_f1
@@ -509,7 +710,8 @@ def production_case(raw) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     store = convert_data(raw)
-    reg = DataRegistration(store, device="cuda")
+    reg = DataRegistration(store, device="cuda", decon_fiducial=False, decon_readout=decon,
+                           decon_max_iters=PRODUCTION_DECON_ITERS)
     seconds = {}
 
     def timed(name, step):
@@ -521,21 +723,23 @@ def production_case(raw) -> dict:
             seconds[name] = time.perf_counter() - t0
         return run
 
-    # the first run also uploads constants and plans torch.fft: timed on its
-    # own, then the warm run through the entry point, split by step
-    timed("first", reg._generate_registrations)(0)
+    # without decon, the first run also uploads constants and plans
+    # torch.fft: timed on its own, then the warm run through the entry
+    # point, split by step (the decon run follows it, warm)
+    if not decon:
+        timed("first", reg._generate_registrations)(0)
     reg._generate_registrations = timed("fiducial", reg._generate_registrations)
     reg._apply_registration_to_bits = timed("bits", reg._apply_registration_to_bits)
-    t0 = time.perf_counter()
-    reg.register_all_tiles()
-    torch.cuda.synchronize()
-    t_register = time.perf_counter() - t0
+    with DeconRecorder() as solves:
+        t0 = time.perf_counter()
+        reg.register_all_tiles()
+        torch.cuda.synchronize()
+        t_register = time.perf_counter() - t0
     residual = round_shift_residual_px(store, raw)
     table, t_opt, t_final = decode_stage(store)
     f1 = match_spots_f1(table, raw.ground_truth, radius_um=1.0)
     voxels = int(raw.bits[0, 0].size)
-    return {
-        "fiducial_registration_first_s": seconds["first"],
+    result = {
         "fiducial_registration_s": seconds["fiducial"],
         "fiducial_registration_s_per_round": seconds["fiducial"] / (raw.fiducial.shape[1] - 1),
         "max_round_shift_residual_px": float(residual.max()),
@@ -552,6 +756,76 @@ def production_case(raw) -> dict:
         "barcodes": int(f1["n_decoded"]),
         "f1": f1,
     }
+    if decon:
+        result.update({
+            "decon_s": solves.seconds,
+            "decon_iterations_per_bit": solves.iters,
+            "decon_ms_per_iteration_per_volume": 1e3 * solves.seconds / max(sum(solves.iters), 1),
+        })
+    else:
+        result["fiducial_registration_first_s"] = seconds["first"]
+    return result
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Swap every RLGC kernel's entry point (K6-K10 and the port's module
+    references to K4 and K5) for its plain version, so a solve on CUDA
+    tensors runs no kernel."""
+    from merfish3d_tpu_torch.ops import pfft, rlgc
+    from merfish3d_tpu_torch.ops import rlgc_kernels as rk
+
+    swaps = [(pfft, name, getattr(pfft, f"{name}_plain"))
+             for name in ("dft_trailing", "dft_middle", "dft_leading", "dft_zx", "dft_mid_conv")]
+    swaps += [(rlgc, "ratio_kld", rk.ratio_kld_plain), (rlgc, "update_select", rk.update_select_plain)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def solve_bit(raw, *, plain: bool, max_iters: int = PRODUCTION_DECON_ITERS, device="cuda",
+              split_fn=None):
+    """Production bit 0 (seed 7) solved alone: (recon on the card,
+    iterations, seconds, kernel launches)."""
+    import torch
+
+    from merfish3d_tpu_torch.ops import pfft, rlgc
+    from merfish3d_tpu_torch.ops import rlgc_kernels as rk
+
+    bit = torch.as_tensor(raw.bits[0, 0], device=device).to(torch.float32)
+    launched = lambda: sum(pfft.launch_count.values()) + sum(rk.launch_count.values())  # noqa: E731
+    with plain_versions() if plain else contextlib.nullcontext():
+        before = launched()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        recon, iters = rlgc.rlgc_batch(bit[None], production_psf(raw), seed=7, max_iters=max_iters,
+                                       out="device", return_iters=True, split_fn=split_fn)
+        torch.cuda.synchronize()
+        return recon[0].to("cuda"), iters[0], time.perf_counter() - t0, launched() - before
+
+
+def rel_delta(a, b) -> tuple[float, float]:
+    """(max |a - b| / max |b|, ||a - b|| / ||b||)."""
+    d = a - b
+    return d.abs().max().item() / b.abs().max().item(), (d.norm() / b.norm()).item()
+
+
+def solve_twice(raw) -> dict:
+    """Production bit 0 solved twice on the card from one generator seed:
+    through the kernels, and through the plain versions. Returns both
+    iteration counts and times, max |delta| / max |recon| and
+    ||delta|| / ||recon||."""
+    rk_, ik, tk, lk = solve_bit(raw, plain=False)
+    rp, ip, tp, lp = solve_bit(raw, plain=True)
+    require(lk > 0 and lp == 0, f"kernel launches: {lk} through the kernels, {lp} through the plain versions")
+    max_rel, l2_rel = rel_delta(rk_, rp)
+    return {"iterations_kernels": ik, "iterations_plain": ip, "seconds_kernels": tk, "seconds_plain": tp,
+            "max_rel_delta": max_rel, "l2_rel_delta": l2_rel}
 
 
 def camera_case(fixed, moving) -> dict:
@@ -572,6 +846,7 @@ def camera_case(fixed, moving) -> dict:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if importlib.util.find_spec("torch") is None:
         print("torch is not installed", file=sys.stderr)
         return 2
@@ -599,6 +874,7 @@ def main() -> int:
     from merfish3d_tpu_torch.ops import decode as dec
     from merfish3d_tpu_torch.ops import fused_decode as fd
     from merfish3d_tpu_torch.ops import pfft
+    from merfish3d_tpu_torch.ops import rlgc_kernels as rk
 
     require(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32,
             "TF32 must be off")
@@ -630,41 +906,57 @@ def main() -> int:
     torch.cuda.empty_cache()
     kernels += check_dft_kernels(raw, torch.as_tensor(cam_fixed, device="cuda").to(torch.float32))
     torch.cuda.empty_cache()
+    kernels += check_rlgc_kernels(raw)
+    torch.cuda.empty_cache()
 
     # -- 4 + 5 + 6. the main path, counting launches
     dec.launch_count = 0
     fd.launch_count_zy = 0
     fd.launch_count_x_decode = 0
-    for name in pfft.launch_count:
-        pfft.launch_count[name] = 0
-    for dist_name, pin in HERMETIC_PINS.items():
+    for counts in (pfft.launch_count, rk.launch_count):
+        for name in counts:
+            counts[name] = 0
+    for (dist_name, decon), pin in HERMETIC_PINS.items():
         t0 = time.perf_counter()
-        res = hermetic_case(dist_name)
-        log(f"hermetic {dist_name}-0.315um-nodecon on CUDA: F1 {res['f1']:.4f} "
+        res = hermetic_case(dist_name, decon)
+        case = f"{dist_name}-0.315um-{'decon' if decon else 'nodecon'}"
+        log(f"hermetic {case} on CUDA: F1 {res['f1']:.4f} "
             f"(pin {pin:.4f}, tp {res['true_positives']} fp {res['false_positives']} "
             f"fn {res['false_negatives']}), {time.perf_counter() - t0:.1f} s")
-        require(abs(res["f1"] - pin) <= F1_TOLERANCE, f"{dist_name} F1 off its pin")
-    prod = production_case(raw)
-    log(f"production geometry (1 tile (16, 1024, 1024) x 16 bits, 2400 spots, seed 21, round "
-        f"shifts up to 2 px; no decon, no deformation, no chromatic) on {card}:")
-    log(f"  fiducial registration of 7 moving rounds {prod['fiducial_registration_s']:.3f} s "
-        f"({prod['fiducial_registration_s_per_round']:.3f} s a round; first run "
-        f"{prod['fiducial_registration_first_s']:.3f} s); max round-shift residual "
-        f"{prod['max_round_shift_residual_px']:.3f} px (per round, z y x: "
-        f"{prod['round_shift_residual_px']})")
-    log(f"  register_all_tiles (fiducials + DoG readout {prod['readout_bits_s']:.3f} s) "
-        f"{prod['register_s']:.2f} s; decode stage "
-        f"{prod['decode_s']:.2f} s = optimization {prod['optimize_s']:.2f} s + final decode "
-        f"{prod['final_decode_s']:.2f} s")
-    log(f"  {prod['voxels_per_s']:.4g} voxels/s ({prod['bit_voxels_per_s']:.4g} bit-voxels/s) "
-        f"over the decode stage; peak device memory {prod['peak_device_bytes'] / 2**30:.2f} GiB")
-    log(f"  barcodes {prod['barcodes']} (unfiltered {prod['barcodes_unfiltered']}); "
-        f"F1 {prod['f1']['f1']:.4f} (tp {prod['f1']['true_positives']} "
-        f"fp {prod['f1']['false_positives']} fn {prod['f1']['false_negatives']})")
-    require(prod["max_round_shift_residual_px"] <= SHIFT_TOL_PX,
-            "a production round shift was not recovered within 0.3 px")
-    require(prod["barcodes"] > 0, "no barcode decoded at production geometry")
-    require(prod["f1"]["f1"] >= 0.5, "production F1 below 0.5")
+        require(abs(res["f1"] - pin) <= F1_TOLERANCE, f"{case} F1 off its pin")
+    productions = {}
+    for decon in (False, True):
+        prod = production_case(raw, decon=decon)
+        productions["decon" if decon else "nodecon"] = prod
+        torch.cuda.empty_cache()
+        log(f"production geometry (1 tile (16, 1024, 1024) x 16 bits, 2400 spots, seed 21, round "
+            f"shifts up to 2 px; "
+            + (f"RLGC on the readout bits, {PRODUCTION_DECON_ITERS} iterations" if decon else "no decon")
+            + f"; no deformation, no chromatic) on {card}:")
+        log(f"  fiducial registration of 7 moving rounds {prod['fiducial_registration_s']:.3f} s "
+            f"({prod['fiducial_registration_s_per_round']:.3f} s a round"
+            + (f"; first run {prod['fiducial_registration_first_s']:.3f} s" if not decon else "")
+            + f"); max round-shift residual {prod['max_round_shift_residual_px']:.3f} px (per round, "
+            f"z y x: {prod['round_shift_residual_px']})")
+        if decon:
+            log(f"  decon of 16 bits {prod['decon_s']:.3f} s, iterations per bit "
+                f"{prod['decon_iterations_per_bit']}, {prod['decon_ms_per_iteration_per_volume']:.2f} ms "
+                f"an iteration and volume (paired solves)")
+        log(f"  register_all_tiles (fiducials + readout bits {prod['readout_bits_s']:.3f} s) "
+            f"{prod['register_s']:.2f} s; decode stage "
+            f"{prod['decode_s']:.2f} s = optimization {prod['optimize_s']:.2f} s + final decode "
+            f"{prod['final_decode_s']:.2f} s")
+        log(f"  {prod['voxels_per_s']:.4g} voxels/s ({prod['bit_voxels_per_s']:.4g} bit-voxels/s) "
+            f"over the decode stage; peak device memory {prod['peak_device_bytes'] / 2**30:.2f} GiB")
+        log(f"  barcodes {prod['barcodes']} (unfiltered {prod['barcodes_unfiltered']}); "
+            f"F1 {prod['f1']['f1']:.4f} (tp {prod['f1']['true_positives']} "
+            f"fp {prod['f1']['false_positives']} fn {prod['f1']['false_negatives']})")
+        require(prod["max_round_shift_residual_px"] <= SHIFT_TOL_PX,
+                "a production round shift was not recovered within 0.3 px")
+        require(prod["barcodes"] > 0, "no barcode decoded at production geometry")
+        require(prod["f1"]["f1"] >= 0.5, "production F1 below 0.5")
+    require(len(productions["decon"]["decon_iterations_per_bit"]) == raw.bits.shape[1],
+            "not every readout bit was deconvolved")
 
     # -- 6. camera geometry pair
     camera = camera_case(cam_fixed, cam_moving)
@@ -681,15 +973,34 @@ def main() -> int:
         "dft_middle (K7)": pfft.launch_count["dft_middle"],
         "dft_leading (K8)": pfft.launch_count["dft_leading"],
         "dft_zx (K10)": pfft.launch_count["dft_zx"],
+        "dft_mid_conv (K9)": pfft.launch_count["dft_mid_conv"],
+        "ratio_kld_f32 (K4)": rk.launch_count["ratio_kld"],
+        "update_select_f32 (K5)": rk.launch_count["update_select"],
     }
     log(f"launch counts on the main path: {launches}")
     require(all(n > 0 for n in launches.values()), "a kernel of the path never launched")
+    require(sorted(launches) == sorted(row["name"] for row in kernels), "a kernel has no row")
+
+    # one production bit through the kernels and through the plain versions
+    twice = solve_twice(raw)
+    log(f"production bit 0 solved twice from seed 7: iterations {twice['iterations_kernels']} "
+        f"(kernels, {twice['seconds_kernels']:.3f} s) and {twice['iterations_plain']} (plain "
+        f"versions, {twice['seconds_plain']:.3f} s); max |delta| / max |recon| "
+        f"{twice['max_rel_delta']:.3e} (limit {SOLVE_MAX_RTOL}), ||delta|| / ||recon|| "
+        f"{twice['l2_rel_delta']:.3e} (limit {SOLVE_L2_RTOL})")
+    require(twice["iterations_kernels"] == twice["iterations_plain"]
+            and twice["max_rel_delta"] <= SOLVE_MAX_RTOL and twice["l2_rel_delta"] <= SOLVE_L2_RTOL,
+            "the kernel and plain solves disagree")
 
     for row in kernels:
         row["launches"] = launches[row["name"]]
-    summary = {"production": {k: v for k, v in prod.items() if k != "f1"}, "camera_pair": camera}
-    summary["production"]["f1"] = prod["f1"]["f1"]
+    summary = {"production": {}, "camera_pair": camera, "solve_twice": twice}
+    for key, prod in productions.items():
+        summary["production"][key] = {k: v for k, v in prod.items() if k != "f1"}
+        summary["production"][key]["f1"] = prod["f1"]["f1"]
+    summary["smoke_s"] = time.perf_counter() - t_start
     log(json.dumps(summary))
+    log(f"smoke wall {summary['smoke_s']:.1f} s, kernel build included")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({

@@ -27,7 +27,7 @@ from typing import Optional
 _PKG = Path(__file__).parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("decode.cu", "fused_decode.cu", "pfft.cu")
+SOURCES = ("decode.cu", "fused_decode.cu", "pfft.cu", "rlgc.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -123,6 +123,12 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.dft_leading_f32.restype = i
     lib.dft_zx_f32.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
     lib.dft_zx_f32.restype = i
+    lib.dft_mid_conv_f32.argtypes = [p] * 12 + [i, i, i, p]
+    lib.dft_mid_conv_f32.restype = i
+    lib.ratio_kld_f32.argtypes = [p] * 6 + [i] * 11 + [p]
+    lib.ratio_kld_f32.restype = i
+    lib.update_select_f32.argtypes = [p] * 9 + [i] * 11 + [p]
+    lib.update_select_f32.restype = i
 
 
 def kernels() -> ctypes.CDLL:

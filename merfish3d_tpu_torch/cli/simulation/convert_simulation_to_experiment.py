@@ -38,6 +38,10 @@ class RawExperiment:
     # production renderer: the injected rigid shift of each round's field
     # (px, round 0 the reference), the reference's GT_misregistration.json
     round_shifts_px_zyx: Optional[np.ndarray] = None  # (rounds, 3)
+    # the reference's metadata.json optics
+    fiducial_wavelengths_um: tuple = (0.488, 0.520)  # excitation, emission
+    na: float = 1.35
+    ri: float = 1.4
 
 
 def _gt_columns(gene_ids, genes, spots, tile_idx, spacing) -> dict:

@@ -5,6 +5,7 @@
 //   K7  dft_middle    (_dft_mid_fwd_kernel / _dft_mid_inv_kernel)
 //   K8  dft_leading   (_dft_lead_kernel)
 //   K10 dft_zx        (_dft_zx_fwd_kernel / _dft_zx_inv_kernel)
+//   K9  dft_mid_conv  (_dft_mid_conv_kernel)
 //
 // Complex values are (real, imag) float32 planes in device memory; the
 // constant tables (w1 (n1, n1), twiddle (n1, 128), w2 (128, 128), dense
@@ -184,6 +185,30 @@ __device__ void ct_inv(const float2* S, const Lines g, int n1, const float2* __r
     }
 }
 
+// inverse stage 1 from E[(k*128+q)*L + l] in S: the n1-point synthesis,
+// natural order out
+__device__ void ct_inv_stage1(const float2* S, const Lines g, int n1,
+                              const float2* __restrict__ w1, float* yr, float* yi) {
+    for (int item = threadIdx.x; item < LANE * g.L; item += blockDim.x) {
+        int q, l;
+        split_item(item, LANE, g, q, l);
+        if (l >= g.valid) continue;
+        float2 e[MAX_N1];
+#pragma unroll
+        for (int k = 0; k < MAX_N1; ++k)
+            if (k < n1) e[k] = S[(k * LANE + q) * g.L + l];
+        for (int p = 0; p < n1; ++p) {
+            float2 acc = make_float2(0.f, 0.f);
+#pragma unroll
+            for (int k = 0; k < MAX_N1; ++k)
+                if (k < n1) cmac(acc, e[k], __ldg(&w1[k * n1 + p]));
+            const long long o = g.at(l, p * LANE + q);
+            yr[o] = acc.x;
+            yi[o] = acc.y;
+        }
+    }
+}
+
 // dense DFT over n rows of `ncols` adjacent columns starting at c0 of a
 // (n, plane) layout: out[k][c] = sum_j W[k][j] x[j][c], staged through
 // S[j*sc + c]. x and y may be the same arrays (every read precedes the
@@ -327,6 +352,44 @@ dft_zx_inv(const float* xr, const float* xi, float* yr, float* yi, const float2*
     }
 }
 
+// ---------------------------------------------------------------- K9
+__global__ void __launch_bounds__(THREADS)
+dft_mid_conv_k(const float* xr, const float* xi, const float* hr, const float* hi, float* yr,
+               float* yi, const float2* w1f, const float2* twf, const float2* w2f,
+               const float2* w1i, const float2* twi, const float2* w2i, int n1, int nx) {
+    extern __shared__ float2 smem[];
+    const Lines g = middle_lines(n1, nx);
+    float2* S = smem;                    // the slab: C, then E, group by group
+    float2* T = smem + n1 * LANE * g.L;  // one group's spectrum times the OTF
+    ct_fwd_stage1(xr, xi, g, n1, w1f, twf, S);
+    __syncthreads();
+    for (int k = 0; k < n1; ++k) {
+        float2* Sk = S + k * LANE * g.L;
+        // forward stage 2 of group k: spectrum positions k*128 + m
+        for (int item = threadIdx.x; item < LANE * g.L; item += blockDim.x) {
+            int m, l;
+            split_item(item, LANE, g, m, l);
+            float2 acc = make_float2(0.f, 0.f);
+#pragma unroll 8
+            for (int q = 0; q < LANE; ++q) cmac(acc, Sk[q * g.L + l], __ldg(&w2f[q * LANE + m]));
+            const long long o = g.at(l, k * LANE + m);
+            T[m * g.L + l] = cmul(acc, make_float2(hr[o], hi[o]));
+        }
+        __syncthreads();
+        // inverse stage 2 + conjugate twiddle (1/n folded in) of group k
+        for (int item = threadIdx.x; item < LANE * g.L; item += blockDim.x) {
+            int q, l;
+            split_item(item, LANE, g, q, l);
+            float2 acc = make_float2(0.f, 0.f);
+#pragma unroll 8
+            for (int m = 0; m < LANE; ++m) cmac(acc, T[m * g.L + l], __ldg(&w2i[m * LANE + q]));
+            Sk[q * g.L + l] = cmul(acc, __ldg(&twi[k * LANE + q]));
+        }
+        __syncthreads();
+    }
+    ct_inv_stage1(S, g, n1, w1i, yr, yi);
+}
+
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
     return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -396,6 +459,20 @@ int dft_zx_f32(const float* xr, const float* xi, float* yr, float* yi, const voi
         if (err != cudaSuccess) return err;
         dft_zx_fwd<<<ny, THREADS, smem, s>>>(xr, xi, yr, yi, c1, ct, c2, cz, nz, ny, n1, zc, sc);
     }
+    return cudaGetLastError();
+}
+
+int dft_mid_conv_f32(const float* xr, const float* xi, const float* hr, const float* hi, float* yr,
+                     float* yi, const void* w1f, const void* twf, const void* w2f, const void* w1i,
+                     const void* twi, const void* w2i, int nz, int n1, int nx, void* stream) {
+    const size_t smem = static_cast<size_t>(n1 + 1) * LANE * MID_TX * sizeof(float2);
+    cudaError_t err = allow_smem(dft_mid_conv_k, smem);
+    if (err != cudaSuccess) return err;
+    const unsigned blocks = static_cast<unsigned>(nz) * (nx / MID_TX);
+    dft_mid_conv_k<<<blocks, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+        xr, xi, hr, hi, yr, yi, static_cast<const float2*>(w1f), static_cast<const float2*>(twf),
+        static_cast<const float2*>(w2f), static_cast<const float2*>(w1i),
+        static_cast<const float2*>(twi), static_cast<const float2*>(w2i), n1, nx);
     return cudaGetLastError();
 }
 

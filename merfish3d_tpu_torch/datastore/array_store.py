@@ -9,7 +9,10 @@ port.
 
 Readout images are keyed by integer ``(tile, bit)``; fiducial images and
 round transforms by ``(tile, round)``; ``round_of_bit`` links each bit to
-its 0-based round.
+its 0-based round. ``channel_psfs`` holds one PSF per channel, the
+fiducial channel first and then the readout emission wavelengths in
+order, with the objective's ``na`` and immersion ``ri``; registration
+deconvolves with them.
 Tables are ``dict[str, np.ndarray]`` of equal-length columns.
 """
 
@@ -31,6 +34,9 @@ class ArrayStore:
         round_of_bit,  # (bits,) 0-based round index per bit
         bit_wavelengths_um,  # (bits, 2) excitation, emission
         stage_positions_zyx_um,  # (tiles, 3)
+        channel_psfs=(),  # per channel (Z, Y, X) float32: fiducial, then readouts
+        na: float = 1.35,
+        ri: float = 1.4,
     ):
         self.gene_ids = [str(g) for g in gene_ids]
         self.codebook_matrix = np.asarray(codebook_matrix, np.float32)
@@ -39,6 +45,9 @@ class ArrayStore:
         self.round_of_bit = np.asarray(round_of_bit, np.int64)
         self.bit_wavelengths_um = np.asarray(bit_wavelengths_um, np.float64)
         self.stage_positions_zyx_um = np.asarray(stage_positions_zyx_um, np.float64)
+        self.channel_psfs = [np.asarray(p, np.float32) for p in channel_psfs]
+        self.na = float(na)
+        self.ri = float(ri)
         self.num_bits = int(self.codebook_matrix.shape[1])
         self.num_rounds = int(self.round_of_bit.max()) + 1
         self.corrected: dict[tuple[int, int], np.ndarray] = {}  # u16
@@ -69,6 +78,9 @@ class ArrayStore:
         feature_predictor=None,  # (tiles, bits, Z, Y, X) u8
         round_transforms=None,  # (tiles, rounds, 4, 4)
         global_xforms=None,  # per tile (affine, origin, spacing)
+        channel_psfs=(),
+        na: float = 1.35,
+        ri: float = 1.4,
     ) -> "ArrayStore":
         """Build a store from stacked arrays (any of the image sets may
         be absent)."""
@@ -81,6 +93,9 @@ class ArrayStore:
             round_of_bit=round_of_bit,
             bit_wavelengths_um=bit_wavelengths_um,
             stage_positions_zyx_um=np.asarray(stage_positions_zyx_um).reshape(-1, 3),
+            channel_psfs=channel_psfs,
+            na=na,
+            ri=ri,
         )
         for name, arrays, dtype, count in (
             ("corrected", corrected, np.uint16, store.num_bits),

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from .device import as_device_tensor
 
 # launches of the K3 kernel since the last reset (chip_smoke reads it)
 launch_count = 0
@@ -169,8 +170,9 @@ def decode_volume(
     """Decode a tile volume in z-chunks (device memory bounded by
     ``bits × z_chunk × Y × X`` per launch). Returns host numpy arrays
     (decoded int16, magnitude f16, distance f16, scaled f16 or None), as
-    the reference does. ``device`` defaults to the input tensor's."""
-    vol = torch.as_tensor(bit_volume, device=device)
+    the reference does. ``device`` defaults to the input tensor's, and to
+    ``cuda`` for a host array."""
+    vol = as_device_tensor(bit_volume, device)
     dev = vol.device
     cb_t = torch.as_tensor(normalize_codebook(codebook_matrix).T.copy(), device=dev)
     bg = torch.as_tensor(np.asarray(background, np.float32), device=dev)

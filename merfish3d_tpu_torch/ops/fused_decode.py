@@ -21,6 +21,7 @@ import torch
 
 from .. import _build
 from .cc import SparseIntensity
+from .device import as_device_tensor
 from .decode import (
     assign_pixels,
     check_decode_inputs,
@@ -231,10 +232,11 @@ def fused_decode_volume(
     Returns host numpy (decoded int16, magnitude f16, distance f16,
     scaled): ``scaled_as="array"`` gives the dense f16 (bits, Z, Y, X)
     volume, ``"gather"`` a :class:`SparseIntensity` of the scaled values
-    at the decoded voxels, gathered on the device."""
+    at the decoded voxels, gathered on the device. ``device`` defaults to
+    the input tensor's, and to ``cuda`` for a host array."""
     if scaled_as not in ("array", "gather"):
         raise ValueError(f"scaled_as must be 'array' or 'gather', got {scaled_as!r}")
-    vol = torch.as_tensor(bit_volume, device=device).to(torch.float32).contiguous()
+    vol = as_device_tensor(bit_volume, device).to(torch.float32).contiguous()
     dev = vol.device
     bits, nz, ny, nx = vol.shape
     cb_t = torch.as_tensor(normalize_codebook(codebook_matrix).T.copy(), device=dev)

@@ -2,13 +2,16 @@
 ``merfish3d_tpu/ops/pfft.py`` and of the spectrum-layout policy of
 ``merfish3d_tpu/ops/mmfft.py``).
 
-Four kernels, hand-written CUDA in ``csrc/pfft.cu``:
+Five kernels, hand-written CUDA in ``csrc/pfft.cu``:
 
 - K6 :func:`dft_trailing` — DFT along the last axis of a (rows, n) pair,
 - K7 :func:`dft_middle` — DFT along axis 1 of a (z, n, x) pair,
 - K8 :func:`dft_leading` — dense DFT along axis 0 of a (n, y, x) pair,
 - K10 :func:`dft_zx` — DFT along axes 0 and 2 of a (z, y, x) pair in one
-  launch.
+  launch,
+- K9 :func:`dft_mid_conv` — forward y DFT, product with an OTF pair in
+  the same scrambled order, inverse y DFT, in one launch (the middle pass
+  of an RLGC convolution).
 
 Spectrum order is a function of the axis length alone, as on the TPU: a
 Cooley-Tukey length n = n1·128 (2 <= n1 <= 24, :func:`supported_ct_axis`)
@@ -41,7 +44,9 @@ _ZX_TY = 8
 _ZX_SMEM_BUDGET = 200 * 1024
 
 # launches of each kernel since the last reset (chip_smoke reads them)
-launch_count = {"dft_trailing": 0, "dft_middle": 0, "dft_leading": 0, "dft_zx": 0}
+launch_count = {
+    "dft_trailing": 0, "dft_middle": 0, "dft_leading": 0, "dft_zx": 0, "dft_mid_conv": 0,
+}
 
 
 # ------------------------------------------------------------ predicates
@@ -69,6 +74,17 @@ def zx_supported(shape) -> bool:
     io_bytes = 5 * nz * _ZX_TY * nx * 4
     live_bytes = 2 * n1 * nz * _ZX_TY * _LANE * 4
     return io_bytes + live_bytes <= 12 * 1024 * 1024
+
+
+def mid_conv_supported(shape) -> bool:
+    """Does K9 take the y axis of this 3D shape? The reference's gate,
+    byte budget included, so the same shapes take it."""
+    if len(shape) != 3:
+        return False
+    nz, ny, nx = (int(v) for v in shape)
+    if not (supported_ct_axis(ny) and nx % _LANE == 0):
+        return False
+    return ny * _LANE * 4 * 12 <= 14 * 1024 * 1024
 
 
 def axis_supported(shape, axis: int) -> bool:
@@ -187,6 +203,14 @@ def dft_zx_plain(xr, xi=None, *, inverse=False, real_output=False):
     return axis_plain(yr, yi, 0, False, False)
 
 
+def dft_mid_conv_plain(xr, xi, hr, hi):
+    """K9's plain version: forward y DFT, product with the OTF, inverse."""
+    fr, fi = axis_plain(xr, xi, 1, False, False)
+    gr = fr * hr - fi * hi
+    gi = fr * hi + fi * hr
+    return axis_plain(gr, gi, 1, True, False)
+
+
 # --------------------------------------------------------- CUDA wrappers
 def _check_pair(xr, xi, ndim: int, what: str) -> None:
     if xr.device.type != "cuda":
@@ -298,6 +322,27 @@ def dft_zx_cuda(xr, xi=None, *, inverse=False, real_output=False):
     return yr, (None if (inverse and real_output) else yi)
 
 
+def dft_mid_conv_cuda(xr, xi, hr, hi):
+    """K9 on CUDA tensors; same contract as :func:`dft_mid_conv`."""
+    _check_pair(xr, xi, 3, "dft_mid_conv")
+    _check_pair(hr, hi, 3, "dft_mid_conv")
+    if hi is None or hr.shape != xr.shape or hr.device != xr.device:
+        raise ValueError("dft_mid_conv: the OTF must be a complex pair of the input's shape and device")
+    if not mid_conv_supported(xr.shape):
+        raise ValueError(f"dft_mid_conv: shape {tuple(xr.shape)} fails mid_conv_supported")
+    nz, n, nx = xr.shape
+    fwd = _on_device("ct", n, False, xr.device)
+    inv = _on_device("ct", n, True, xr.device)
+    yr, yi = _outputs(xr, False)
+    status = _build.kernels().dft_mid_conv_f32(
+        xr.data_ptr(), _ptr(xi), hr.data_ptr(), hi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+        *(t.data_ptr() for t in fwd), *(t.data_ptr() for t in inv), nz, n // _LANE, nx,
+        _build.stream_handle(xr.device),
+    )
+    _launched(status, "dft_mid_conv")
+    return yr, yi
+
+
 # ------------------------------------------------------------ entry points
 def _dispatch(cuda_fn, plain_fn, xr, xi, inverse, real_output):
     if xr.device.type == "cuda":
@@ -328,6 +373,18 @@ def dft_zx(xr, xi=None, *, inverse=False, real_output=False):
     takes the z axis first and the x axis last, so ``real_output``
     applies to x."""
     return _dispatch(dft_zx_cuda, dft_zx_plain, xr, xi, inverse, real_output)
+
+
+def dft_mid_conv(xr, xi, hr, hi):
+    """``idft_y(dft_y(x) · h)`` along axis 1 of a 3D pair in one pass
+    (K9); ``h`` is a full-spectrum OTF pair in :func:`.fftutils.fftn_spec`
+    order, whose axis-1 layout is this kernel's. The caller checked
+    :func:`mid_conv_supported`. Returns ``(yr, yi)``."""
+    if xr.device.type == "cuda":
+        return dft_mid_conv_cuda(xr, xi, hr, hi)
+    if xr.device.type != "cpu":
+        raise ValueError(f"unsupported device {xr.device}")
+    return dft_mid_conv_plain(xr, xi, hr, hi)
 
 
 def dft_axis_3d(xr, xi, axis: int, *, inverse=False, real_output=False):

@@ -1,21 +1,34 @@
-"""Fiducial round registration and readout-bit preprocessing (counterpart
-of ``DataRegistration`` in ``merfish3d_tpu/pipeline/registration.py``
-without deconvolution, deformable flow or multi-tile stitching).
+"""Fiducial round registration, RLGC deconvolution and readout-bit
+preprocessing (counterpart of ``DataRegistration`` in
+``merfish3d_tpu/pipeline/registration.py`` without deformable flow or
+multi-tile stitching).
 
-Per tile: round 0's fiducial image is the reference (identity transform);
-the moving rounds, in batches of ``round_batch_size``, are uploaded as
-u16, cast on the device and registered against it by staged phase
-correlation (:func:`..ops.registration.register_rounds_to_fixed`); the
-measured translations become the store's round transforms, and the
-fiducials resampled into the reference frame are stored as u16. Then per
-readout bit: the corrected image is the registered image (no
-deconvolution), the DoG predictor gives the spot probability, and both
-are stored in the persisted forms (u16, u8 k/255); the decoder resamples
+Per tile: round 0's fiducial image, deconvolved with the fiducial PSF
+when ``decon_fiducial`` (seed ``42 + tile``), is the reference (identity
+transform). The moving rounds, in batches of ``round_batch_size`` (capped
+by :func:`..ops.rlgc.max_vmap_batch`), are uploaded as u16, cast and
+deconvolved on the device — one :func:`..ops.rlgc.rlgc_batch` when a
+batch holds more than one round and y ≤ ``crop_yx_decon or 1024`` (seed
+``42 + tile + 1000 + start``), else one :func:`..ops.rlgc.chunked_rlgc`
+a round (seed ``42 + tile + 1000·round``) — and registered against the
+reference by staged phase correlation
+(:func:`..ops.registration.register_rounds_to_fixed`); the measured
+translations become the store's round transforms, and the fiducials
+resampled into the reference frame are stored as u16.
+
+Then the readout bits, grouped by PSF (excitation < 600 nm: PSF 1, else
+2) and chunked by ``min(bit_batch_size, max_vmap_batch)``, are
+deconvolved when ``decon_readout`` (seed ``7 + 100·tile + first bit``,
+with the same batch-or-single choice), the DoG predictor gives the spot
+probability, and both are stored in the persisted forms (u16, u8 k/255);
+deconvolved volumes stay on the device until then. The decoder resamples
 each bit by its round's transform. The single tile's global transform is
 the identity at its stage position.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -23,6 +36,7 @@ import torch
 from ..datastore.array_store import ArrayStore
 from ..models.ufish import DoGSpotPredictor
 from ..ops.registration import register_rounds_to_fixed
+from ..ops.rlgc import chunked_rlgc, max_vmap_batch, rlgc_batch
 from .handoff import to_cache_forms
 
 
@@ -35,19 +49,24 @@ class DataRegistration:
         predictor: DoGSpotPredictor | None = None,
         bit_batch_size: int = 8,
         round_batch_size: int = 4,
-        decon_fiducial: bool = False,
-        decon_readout: bool = False,
+        decon_fiducial: bool = True,
+        decon_readout: bool = True,
+        decon_max_iters: int = 40,
+        crop_yx_decon: Optional[int] = None,
     ):
-        if decon_fiducial or decon_readout:
-            raise NotImplementedError(
-                "RLGC deconvolution (decon_fiducial / decon_readout) is not ported yet: "
-                "it comes with the RLGC slice (ops/rlgc.py)"
+        if (decon_fiducial or decon_readout) and not store.channel_psfs:
+            raise ValueError(
+                "deconvolution (decon_fiducial / decon_readout) needs the store's channel_psfs"
             )
         self._store = store
         self._device = torch.device(device)
         self._predictor = predictor if predictor is not None else DoGSpotPredictor()
         self._bit_batch_size = max(1, int(bit_batch_size))
         self._round_batch_size = max(1, int(round_batch_size))
+        self._decon_fiducial = bool(decon_fiducial)
+        self._decon_readout = bool(decon_readout)
+        self._decon_max_iters = int(decon_max_iters)
+        self._crop_yx_decon = crop_yx_decon
 
     def register_all_tiles(self) -> None:
         store = self._store
@@ -64,19 +83,54 @@ class DataRegistration:
                 np.asarray(store.voxel_size_zyx_um, np.float64),
             )
 
+    # ------------------------------------------------------------- decon
+    def _psf_for_channel(self, psf_idx: int) -> np.ndarray:
+        psfs = self._store.channel_psfs
+        return psfs[min(psf_idx, len(psfs) - 1)]
+
+    def _psf_idx_for_bit(self, bit: int) -> int:
+        """Excitation below 600 nm → PSF 1, else 2."""
+        return 1 if self._store.bit_wavelengths_um[bit][0] < 0.600 else 2
+
+    def _deconvolve(self, image: torch.Tensor, psf: np.ndarray, seed: int) -> torch.Tensor:
+        return chunked_rlgc(
+            image, psf, crop_yx=self._crop_yx_decon, seed=seed,
+            max_iters=self._decon_max_iters, out="device",
+        )
+
+    def _decon_stack(self, raws: np.ndarray, psf: Optional[np.ndarray], seed: int, single_seeds):
+        """A stack of u16 volumes, uploaded as u16, cast on the device and
+        deconvolved: one batch solve when it holds more than one volume
+        and y ≤ ``crop_yx_decon or 1024``, else one tiled solve each."""
+        stack = torch.as_tensor(raws, device=self._device).to(torch.float32)
+        if psf is None:
+            return stack
+        if len(raws) > 1 and raws.shape[-2] <= (self._crop_yx_decon or 1024):
+            return rlgc_batch(stack, psf, seed=seed, max_iters=self._decon_max_iters, out="device")
+        return torch.stack([self._deconvolve(v, psf, s) for v, s in zip(stack, single_seeds)])
+
+    # ----------------------------------------------------- fiducial rounds
     @torch.no_grad()
     def _generate_registrations(self, tile: int) -> None:
         store = self._store
-        reference = store.fiducial_corrected[(tile, 0)]
-        reference_dev = torch.as_tensor(reference, device=self._device).to(torch.float32)
+        fid_psf = self._psf_for_channel(0) if self._decon_fiducial else None
+        reference_dev = self._decon_stack(
+            store.fiducial_corrected[(tile, 0)][None], fid_psf, 42 + tile, [42 + tile]
+        )[0]
         store.round_transforms[(tile, 0)] = np.eye(4)
-        store.fiducial_registered[(tile, 0)] = reference.copy()
+        store.fiducial_registered[(tile, 0)] = (
+            reference_dev.clamp(0, 65535).to(torch.int32).cpu().numpy().astype(np.uint16)
+        )
         moving = list(range(1, store.num_rounds))
-        for start in range(0, len(moving), self._round_batch_size):
-            rounds = moving[start : start + self._round_batch_size]
+        batch = self._round_batch_size
+        if fid_psf is not None:
+            batch = min(batch, max_vmap_batch(reference_dev.shape, fid_psf.shape))
+        for start in range(0, len(moving), batch):
+            rounds = moving[start : start + batch]
             raws = np.stack([store.fiducial_corrected[(tile, r)] for r in rounds])
-            # upload u16, cast on the device
-            movings = torch.as_tensor(raws, device=self._device).to(torch.float32)
+            movings = self._decon_stack(
+                raws, fid_psf, 42 + tile + 1000 + start, [42 + tile + r * 1000 for r in rounds]
+            )
             transforms, warped = register_rounds_to_fixed(
                 reference_dev, movings, spacing_zyx_um=store.voxel_size_zyx_um,
                 return_warped=True, device=self._device,
@@ -85,17 +139,26 @@ class DataRegistration:
                 store.round_transforms[(tile, r)] = transforms[i].astype(np.float64)
                 store.fiducial_registered[(tile, r)] = warped[i]
 
+    # ------------------------------------------------------- readout bits
     @torch.no_grad()
     def _apply_registration_to_bits(self, tile: int) -> None:
         store = self._store
-        bits = list(range(store.num_bits))
-        for start in range(0, len(bits), self._bit_batch_size):
-            chunk = bits[start : start + self._bit_batch_size]
-            raws = np.stack([store.corrected[(tile, b)] for b in chunk])
-            # upload u16, cast on the device
-            decons = torch.as_tensor(raws, device=self._device).to(torch.float32)
-            du, pu = to_cache_forms(decons, self._predictor(decons))
-            du, pu = du.cpu().numpy(), pu.cpu().numpy()
-            for i, b in enumerate(chunk):
-                store.registered[(tile, b)] = du[i]
-                store.feature_predictor[(tile, b)] = pu[i]
+        groups: dict[int, list[int]] = {}
+        for b in range(store.num_bits):
+            groups.setdefault(self._psf_idx_for_bit(b) if self._decon_readout else -1, []).append(b)
+        for psf_idx, members in groups.items():
+            psf = self._psf_for_channel(psf_idx) if psf_idx >= 0 else None
+            batch = self._bit_batch_size
+            if psf is not None:
+                batch = min(batch, max_vmap_batch(store.corrected[(tile, members[0])].shape, psf.shape))
+            for start in range(0, len(members), batch):
+                chunk = members[start : start + batch]
+                raws = np.stack([store.corrected[(tile, b)] for b in chunk])
+                decons = self._decon_stack(
+                    raws, psf, 7 + tile * 100 + chunk[0], [7 + tile * 100 + b for b in chunk]
+                )
+                du, pu = to_cache_forms(decons, self._predictor(decons))
+                du, pu = du.cpu().numpy(), pu.cpu().numpy()
+                for i, b in enumerate(chunk):
+                    store.registered[(tile, b)] = du[i]
+                    store.feature_predictor[(tile, b)] = pu[i]

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Where the time of the port's fiducial registration and decode stage
-goes, at production geometry on one GPU.
+"""Where the time of the port's fiducial registration, RLGC deconvolution
+and decode stage goes, at production geometry on one GPU.
 
     python3 profile_decode.py
 
@@ -10,7 +10,13 @@ the production tile as ``chip_smoke.py`` does (one (16, 1024, 1024) tile x
 First the fiducial registration of its 7 moving rounds runs twice under
 ``torch.profiler``: wall time, device busy share and device ops (the
 second run is read; the first also uploads constants and plans
-``torch.fft``). Then it runs the decode stage (normalization
+``torch.fft``). Then one readout batch — the 8 bits that share PSF 1,
+padded to (32, 1152, 1152) — is deconvolved by ``rlgc_batch`` (paired
+solves, 10 iterations, the production setting) under the profiler, after
+a short warm-up solve: device time by kernel (K10, K9, K4, K5, the DFT
+kernels of the OTF, copies, the other elementwise ops), the device busy
+share, device-to-host copies per volume-iteration, and the split
+sampler's own time (CUDA events). Then it runs the decode stage (normalization
 optimization, 3 iterations, + final decode) three times in one process,
 each on a freshly registered store:
 
@@ -26,6 +32,14 @@ each on a freshly registered store:
 
 Prints the card's name and power limit, the times, and the profiler's
 device ops by self device time.
+
+    python3 profile_decode.py --solve-routes
+
+instead solves production bit 0 from the same splits (drawn on the host)
+three ways — through the kernels, through their plain versions on the
+card (cuFFT), and on the host (pocketfft) — for 1, 3 and 10 iterations,
+and prints how far each pair of routes differs: the floor between two
+correct FP32 implementations of the solve. The host solves take minutes.
 """
 
 from __future__ import annotations
@@ -115,7 +129,8 @@ def profile_registration(raw) -> None:
     from merfish3d_tpu_torch.pipeline.registration import DataRegistration
 
     log = chip_smoke.log
-    reg = DataRegistration(convert_data(raw), device="cuda")
+    reg = DataRegistration(convert_data(raw), device="cuda", decon_fiducial=False,
+                           decon_readout=False)
     for run in (1, 2):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             torch.cuda.synchronize()
@@ -127,6 +142,87 @@ def profile_registration(raw) -> None:
         log(f"registration run {run}, profiled: 7 moving rounds in {wall:.4f} s "
             f"({wall / 7:.4f} s a round); device busy {busy:.4f} s = {busy / wall:.4f} of the wall")
     log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=20))
+
+
+# device kernels by name fragment -> row of the decon breakdown
+DECON_KERNELS = (
+    ("dft_zx", "K10 dft_zx (forward and inverse of every convolution)"),
+    ("dft_mid_conv", "K9 dft_mid_conv"),
+    ("ratio_kld", "K4 ratio_kld"),
+    ("update_select", "K5 update_select"),
+    ("dft_middle", "K7 dft_middle (OTF spectrum)"),
+    ("Memcpy", "copies"),
+    ("Memset", "copies"),
+)
+
+
+def profile_decon(raw) -> None:
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from merfish3d_tpu_torch.ops.fftutils import linear_fft_pad_width, pad_symmetric
+    from merfish3d_tpu_torch.ops.rlgc import binomial_split, rlgc_batch
+
+    log = chip_smoke.log
+    psf = chip_smoke.production_psf(raw, 0)
+    stack = torch.as_tensor(raw.bits[0, 0::2], device="cuda")  # bits of PSF 1, u16
+    rlgc_batch(stack[:2], psf, seed=7, max_iters=2, out="device")  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, iters = rlgc_batch(stack, psf, seed=7, max_iters=10, out="device", return_iters=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.events()
+    busy = device_busy_seconds(events)
+    n_iter = sum(iters)
+    log(f"decon of 8 readout bits (32, 1152, 1152) padded, paired: {wall:.4f} s, iterations "
+        f"{iters} ({n_iter} volume-iterations, {1e3 * wall / n_iter:.3f} ms each); device busy "
+        f"{busy:.4f} s = {busy / wall:.4f} of the wall")
+    rows: dict = collections.defaultdict(float)
+    calls: dict = collections.defaultdict(int)
+    dtoh = 0
+    for e in events:
+        if e.device_type != DeviceType.CUDA:
+            continue
+        label = next((lab for frag, lab in DECON_KERNELS if frag in e.name),
+                     "other elementwise and reduction ops (split sampler included)")
+        rows[label] += (e.time_range.end - e.time_range.start) * 1e-3
+        calls[label] += 1
+        dtoh += "DtoH" in e.name
+    for label, ms in sorted(rows.items(), key=lambda kv: -kv[1]):
+        log(f"  {label:64s} {ms:10.3f} ms  {calls[label]:6d} launches  "
+            f"{ms / n_iter:8.3f} ms a volume-iteration")
+    log(f"  device-to-host copies: {dtoh} over {n_iter} volume-iterations")
+    padded = pad_symmetric(stack[0].to(torch.float32), linear_fft_pad_width(stack.shape[1:], psf.shape))
+    split_ms = chip_smoke.cuda_ms(lambda: binomial_split(padded, 7, 0))
+    log(f"  split sampler alone (CUDA events, one volume): {split_ms:.3f} ms a call, "
+        f"{split_ms * n_iter:.1f} ms over the run's volume-iterations")
+    log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=25))
+
+
+def solve_routes(raw) -> None:
+    from merfish3d_tpu_torch.ops.rlgc import binomial_split
+
+    def host_split(observed, seed, it):
+        return binomial_split(observed.cpu(), seed, it).to(observed.device)
+
+    log = chip_smoke.log
+    for iters in (1, 3, 10):
+        runs = {
+            "kernels": chip_smoke.solve_bit(raw, plain=False, max_iters=iters, split_fn=host_split),
+            "plain on the card": chip_smoke.solve_bit(raw, plain=True, max_iters=iters, split_fn=host_split),
+            "plain on the host": chip_smoke.solve_bit(raw, plain=True, max_iters=iters, device="cpu",
+                                                      split_fn=host_split),
+        }
+        log(f"{iters} iteration(s): iterations " + ", ".join(f"{k} {v[1]} ({v[2]:.2f} s)"
+                                                            for k, v in runs.items()))
+        for a, b in (("kernels", "plain on the card"), ("plain on the card", "plain on the host"),
+                     ("kernels", "plain on the host")):
+            max_rel, l2_rel = chip_smoke.rel_delta(runs[a][0], runs[b][0])
+            log(f"  {a} vs {b}: max |delta| / max |recon| {max_rel:.3e}, "
+                f"||delta|| / ||recon|| {l2_rel:.3e}")
 
 
 def main() -> int:
@@ -144,7 +240,12 @@ def main() -> int:
     t0 = time.perf_counter()
     raw = chip_smoke.production_raw()
     log(f"generator {time.perf_counter() - t0:.3f} s")
+    if "--solve-routes" in sys.argv[1:]:
+        solve_routes(raw)
+        return 0
     profile_registration(raw)
+    profile_decon(raw)
+    torch.cuda.empty_cache()
 
     _, t_opt, t_final = chip_smoke.decode_stage(chip_smoke.registered_store(raw))
     log(f"run 1, unsectioned: optimization {t_opt:.3f} s + final {t_final:.3f} s "

@@ -1,5 +1,5 @@
 """Hand-written CUDA kernels of merfish3d_tpu_torch against their plain
-torch versions, on the card.
+torch versions, on the card (decode K1-K3, DFT K6-K10, RLGC K4 and K5).
 
 Needs a CUDA device and nvcc; skips without them. Imports neither JAX
 nor the JAX package, so it runs where those are absent:
@@ -135,7 +135,7 @@ def test_decode_volume_on_card_matches_cpu(cuda):
     nm = (rng.random(16) + 0.5).astype(np.float32)
     kw = dict(magnitude_threshold=(0.9, 10.0), distance_threshold=0.5176)
     gpu = dec.decode_volume(torch.as_tensor(vol, device=cuda), cb, bg, nm, **kw)
-    cpu = dec.decode_volume(vol, cb, bg, nm, **kw)
+    cpu = dec.decode_volume(vol, cb, bg, nm, device="cpu", **kw)
     assert (gpu[0] != cpu[0]).mean() <= 1e-3
     for a, b in zip(gpu[1:], cpu[1:]):
         np.testing.assert_allclose(a.astype(np.float32), b.astype(np.float32),
@@ -200,3 +200,98 @@ def test_dft_wrappers_refuse_bad_input(cuda):
         pfft.dft_zx_cuda(torch.zeros((2, 8, 256)))  # CPU tensor
     with pytest.raises(TypeError):
         pfft.dft_leading_cuda(torch.zeros((8, 8, 128), device=cuda, dtype=torch.float64))
+
+
+# ------------------------------------------------------------ RLGC kernels
+@pytest.mark.parametrize("shape", [(3, 256, 384), (4, 1152, 256), (2, 2304, 128)])
+def test_k9_matches_plain(cuda, shape):
+    """K9 against its plain version within the DFT tolerance, 3e-5 x max|y|,
+    up to the gate's largest y length (2304: 156 KB of shared memory)."""
+    from merfish3d_tpu_torch.ops import pfft
+
+    assert pfft.mid_conv_supported(shape)
+    rng = np.random.default_rng(6)
+    xr, xi = _pair(rng, shape, cuda)
+    hr, hi = _pair(rng, shape, cuda)
+    k, p = pfft.dft_mid_conv_cuda(xr, xi, hr, hi), pfft.dft_mid_conv_plain(xr, xi, hr, hi)
+    torch.cuda.synchronize()
+    _assert_pair_close(k, p, max(p[0].abs().max().item(), p[1].abs().max().item()))
+
+
+_EW_CASES = [
+    ((27, 128, 128), ((7, 8), (16, 16), (16, 16))),  # the hermetic decon volume
+    ((4, 8, 4096), ((1, 1), (2, 1), (3, 5))),  # rows wider than a block: two quads a thread
+    ((6, 16, 384), ((0, 0), (0, 0), (0, 0))),  # no padding at all
+]
+
+
+@pytest.mark.parametrize("shape,pad_width", _EW_CASES)
+def test_k4_k5_match_plain(cuda, shape, pad_width):
+    """K4: ratios equal (the same division), KLDs within 1e-5 relative (an
+    FP64 fold against the plain f32 chain). K5 under both restore flags:
+    selects equal, count and maxima exact."""
+    from merfish3d_tpu_torch.ops import rlgc_kernels as rk
+
+    rng = np.random.default_rng(7)
+
+    def vol(a):
+        return torch.as_tensor(a.astype(np.float32), device=cuda)
+
+    hu = vol(rng.normal(50.0, 30.0, shape))
+    s1, s2 = vol(rng.poisson(20.0, shape)), vol(rng.poisson(20.0, shape))
+    k, p = rk.ratio_kld_cuda(hu, s1, s2, pad_width), rk.ratio_kld_plain(hu, s1, s2, pad_width)
+    torch.cuda.synchronize()
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+    for a, b in zip(k[2], p[2]):
+        assert abs(a.item() - b.item()) <= 1e-5 * abs(b.item())
+    cons, ht = vol(rng.normal(0.0, 1.0, shape)), vol(rng.uniform(0.2, 1.8, shape))
+    rec, prev = vol(rng.uniform(0.5, 2.0, shape)), vol(rng.uniform(0.5, 2.0, shape))
+    for restore in (False, True):
+        flag = torch.tensor(restore, device=cuda)
+        k = rk.update_select_cuda(cons, rec, prev, ht, flag, pad_width)
+        p = rk.update_select_plain(cons, rec, prev, ht, flag, pad_width)
+        torch.cuda.synchronize()
+        assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+        assert [t.item() for t in k[2:]] == [t.item() for t in p[2:]]
+
+
+def test_rlgc_wrappers_refuse_bad_input(cuda):
+    from merfish3d_tpu_torch.ops import pfft
+    from merfish3d_tpu_torch.ops import rlgc_kernels as rk
+
+    pw = ((0, 0), (0, 0), (0, 0))
+    x = torch.zeros((2, 8, 128), device=cuda)
+    with pytest.raises(ValueError):
+        rk.ratio_kld_cuda(torch.zeros((2, 8, 100), device=cuda), x, x, pw)  # x % 128
+    with pytest.raises(ValueError):
+        rk.ratio_kld_cuda(torch.zeros((2, 8, 128)), x, x, pw)  # CPU tensor
+    with pytest.raises(TypeError):
+        rk.update_select_cuda(x.double(), x, x, x, False, pw)
+    with pytest.raises(ValueError):
+        pfft.dft_mid_conv_cuda(x, x, x, None)  # the OTF must be complex
+    with pytest.raises(ValueError):
+        pfft.dft_mid_conv_cuda(*(torch.zeros((2, 100, 128), device=cuda) for _ in range(4)))
+
+
+def test_rlgc_solve_on_card_matches_cpu(cuda):
+    """A paired solve on the card (K4, K5, K8 on z, torch.fft elsewhere)
+    against the same solve on CPU, with the splits drawn on CPU for both:
+    the same iteration counts; recons within 1e-4 x max except at the
+    voxels whose consensus gate flips on rounding (a discontinuous select,
+    which flips between any two FP32 implementations: at most 1 % of the
+    voxels), and within 1e-2 in L2."""
+    from merfish3d_tpu_torch.ops import rlgc
+
+    rng = np.random.default_rng(8)
+    obs = rng.poisson(20.0 + 200.0 * (rng.random((3, 12, 96, 96)) > 0.999), (3, 12, 96, 96))
+    psf = np.ones((5, 15, 15), np.float32) / 1125.0  # pads to (16, 128, 128): K4, K5 and K8 take it
+
+    def split(observed, seed, it):
+        return rlgc.binomial_split(observed.cpu(), seed, it).to(observed.device)
+
+    kw = dict(seed=3, max_iters=8, split_fn=split, return_iters=True)
+    gpu, it_g = rlgc.rlgc_batch(torch.as_tensor(obs.astype(np.float32), device=cuda), psf, **kw)
+    cpu, it_c = rlgc.rlgc_batch(obs.astype(np.float32), psf, device="cpu", **kw)
+    assert it_g == it_c
+    assert np.mean(np.abs(gpu - cpu) > 1e-4 * np.abs(cpu).max()) <= 0.01
+    assert np.linalg.norm(gpu - cpu) <= 1e-2 * np.linalg.norm(cpu)

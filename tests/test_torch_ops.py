@@ -138,7 +138,7 @@ def test_decode_volume_matches_jax(return_scaled):
     lp = np.asarray(jfilt.gaussian_lowpass(jnp.asarray(vol), sigma=(1.0, 1.0, 1.0)))
     ref = jdec.decode_volume(lp, cb, bg, nm, use_pallas=False, return_scaled=return_scaled,
                              **KW)
-    out = tdec.decode_volume(lp, cb, bg, nm, return_scaled=return_scaled, **KW)
+    out = tdec.decode_volume(lp, cb, bg, nm, return_scaled=return_scaled, device="cpu", **KW)
     assert (out[0] >= 0).mean() > 0.01
     diff = np.flatnonzero(out[0].ravel() != ref[0].ravel())
     _near_tie_only(diff, lp.reshape(16, -1), cb, bg, nm)
@@ -185,9 +185,9 @@ def test_fused_decode_volume_streaming_gather_matches_jax():
     with pltpu.force_tpu_interpret_mode():
         ref = jfused.fused_decode_volume(vol, cb, bg, nm, y_slab=16, hbm_budget_bytes=0,
                                          scaled_as="gather", **kw)
-    whole = tfused.fused_decode_volume(vol, cb, bg, nm, scaled_as="array", **kw)
+    whole = tfused.fused_decode_volume(vol, cb, bg, nm, scaled_as="array", device="cpu", **kw)
     slabbed = tfused.fused_decode_volume(vol, cb, bg, nm, y_slab=16, memory_budget_bytes=0,
-                                         scaled_as="gather", **kw)
+                                         scaled_as="gather", device="cpu", **kw)
     # slab streaming reproduces the whole-volume decode exactly
     np.testing.assert_array_equal(slabbed[0], whole[0])
     np.testing.assert_array_equal(slabbed[1], whole[1])
@@ -245,7 +245,7 @@ def test_fused_wrappers_refuse_bad_input():
     with pytest.raises(ValueError):
         tfused.fused_decode_volume(np.zeros((16, 2, 8, 8), np.float32), mhd4_codebook(),
                                    np.zeros(16), np.ones(16), distance_threshold=0.5,
-                                   scaled_as="dense")
+                                   scaled_as="dense", device="cpu")
 
 
 def test_z_fold_matrix_is_the_padded_conv():

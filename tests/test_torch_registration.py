@@ -143,7 +143,7 @@ def hermetic(request, tmp_path_factory):
     store.round_transforms.clear()
     store.registered.clear()
     store.feature_predictor.clear()
-    DataRegistration(store, device="cpu").register_all_tiles()
+    DataRegistration(store, device="cpu", decon_fiducial=False, decon_readout=False).register_all_tiles()
     return case, ref, store
 
 
@@ -185,10 +185,16 @@ def test_hermetic_decode_after_port_registration_matches_reference(hermetic):
 
 
 def test_registration_refuses_deconvolution():
+    """Deconvolution is on by default, as in the reference, and is refused
+    for a store that carries no channel PSFs."""
     store = convert_data(generate_raw_experiment(shape=(4, 16, 16), n_spots=4, seed=1))
-    for kw in ({"decon_fiducial": True}, {"decon_readout": True}):
-        with pytest.raises(NotImplementedError, match="RLGC"):
+    assert len(store.channel_psfs) == 3
+    DataRegistration(store, device="cpu")
+    store.channel_psfs = []
+    for kw in ({"decon_readout": False}, {"decon_fiducial": False}, {}):
+        with pytest.raises(ValueError, match="channel_psfs"):
             DataRegistration(store, device="cpu", **kw)
+    DataRegistration(store, device="cpu", decon_fiducial=False, decon_readout=False)
 
 
 # --------------------------------------------------------------- generator

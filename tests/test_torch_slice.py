@@ -147,7 +147,7 @@ def test_dog_registration_matches_reference(ref):
     store = port_store_from_reference(ref)
     store.registered.clear()
     store.feature_predictor.clear()
-    DataRegistration(store, device="cpu").register_all_tiles()
+    DataRegistration(store, device="cpu", decon_fiducial=False, decon_readout=False).register_all_tiles()
     registered, prob = store.registered_stack(0)
     np.testing.assert_array_equal(registered, ref["registered"])
     diff = np.abs(prob.astype(np.int16) - ref["probability_u8"].astype(np.int16))
@@ -191,7 +191,7 @@ def test_port_chain_meets_f1_pin(distribution):
     case = MatrixCase(distribution, 0.315, False)
     raw = _generate(case)
     store = convert_data(raw)
-    DataRegistration(store, device="cpu").register_all_tiles()
+    DataRegistration(store, device="cpu", decon_fiducial=False, decon_readout=False).register_all_tiles()
     table = decode_pixels(
         store, device="cpu", minimum_pixels=case.minimum_pixels,
         magnitude_threshold=case.magnitude_threshold, lowpass_sigma=case.lowpass_sigma,
