@@ -17,11 +17,16 @@ Run from the root of a checkout. Phases, each raising on failure:
    admits; K10, K9, K4 and K5 on the first RLGC iteration of a production
    readout bit padded to (32, 1152, 1152)), with timings (CUDA events), the
    bound of each and the time of one ``torch`` call or composition
-   computing the same function;
+   computing the same function; K11 at each distinct convolution of one
+   8-plane batch of the production tile through a full-width c32
+   ConvTranspose U-FISH network (seeded weights), on the activations that
+   batch gives each layer;
 4. the hermetic F1 cases uniform/cells-0.315um-nodecon (fiducial
    registration + decode) and uniform/cells-0.315um-decon (RLGC on the
    readout bits, 12 iterations, as ``tests/f1_matrix_common.py`` runs
-   them) on CUDA, held to their pinned F1 ±0.02;
+   them) on CUDA with the DoG predictor, and the CNN cases
+   uniform-0.315um-nodecon and cells-0.315um-decon with the repo's trained
+   c8 U-FISH checkpoint, each held to its pinned F1 ±0.02;
 5. the production geometry — one (16, 1024, 1024) tile × 16 bits, 2400
    spots, 8 fiducial rounds rigidly shifted by up to 2 px — through the
    port's fiducial registration and then the decode stage on CUDA, once
@@ -29,14 +34,19 @@ Run from the root of a checkout. Phases, each raising on failure:
    iterations, the reference's production setting): every recovered
    round shift within 0.3 px of the injected one, F1 >= 0.5, with wall
    times, voxels/s, the decon's iterations and ms per iteration and
-   volume, and peak device memory. Cut to what is ported: no fiducial
+   volume, and peak device memory; then once more without deconvolution
+   with the c8 CNN predicting the spot probabilities, and the tile's 16
+   bits x 16 planes through the full-width c32 network (seeded weights,
+   encoded to ONNX and loaded as a published checkpoint would be: its
+   seconds, planes/s and peak memory; random weights give meaningless
+   maps, so it is not decoded). Cut to what is ported: no fiducial
    deconvolution (the reference's production case has none either), no
    deformation, no chromatic aberration;
 6. the camera geometry — one (32, 2048, 2048) bead pair with a known
    shift — through ``register_pair_to_fixed`` on CUDA, recovered within
    0.3 px.
 
-The launch counts of the ten kernels are zeroed before phase 4 and read
+The launch counts of the eleven kernels are zeroed before phase 4 and read
 after phase 6: every kernel must have run on the main path. Then one
 production bit is solved twice more, through the kernels and through
 their plain versions, from the same generator seed: the two must agree.
@@ -53,6 +63,7 @@ import json
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -85,10 +96,20 @@ RATIO_ULPS = 2  # K4's ratios vs plain: the same division, at most 2 ulp apart
 SOLVE_MAX_RTOL = 2e-2
 SOLVE_L2_RTOL = 5e-3
 PRODUCTION_DECON_ITERS = 10
+# DataRegistration's options for the repo's trained c8 U-FISH checkpoint,
+# as tests/f1_matrix_common.py passes them
+CNN_OPTIONS = dict(ufish_model="synthetic-cnn",
+                   ufish_checkpoint=ROOT / "tests" / "data" / "ufish_synthetic_c8.pkl")
+# tests/test_f1_matrix.py EXPECTED_F1_CNN: (distribution, decon) -> pinned F1
+CNN_PINS = {("uniform", False): 0.9666, ("cells", True): 0.9744}
+# a U-Net batch through K11 vs through the plain convolutions: the CPU
+# predictor's bound against the reference's bf16 path (tests/test_torch_ufish.py)
+UNET_ROUTE_ATOL = 0.05
 CAMERA_SHIFT_PX = (0.4, 1.7, -1.3)
 # the card's published peaks (H100 SXM): HBM bytes/s and FP32 flop/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_TENSOR_FLOP_PER_S = 989e12  # dense bf16 tensor-core rate
 
 
 def log(msg: str) -> None:
@@ -107,10 +128,11 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def bound(nbytes: float, flops: float) -> dict:
+def bound(nbytes: float, flops: float, flop_rate: float = FP32_FLOP_PER_S) -> dict:
     """The least time the card could take: the larger of the bytes over
-    the memory rate and the operations over the FP32 rate."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
+    the memory rate and the operations over their type's peak rate (FP32
+    unless given)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / flop_rate * 1e3
     log(f"  bound: bytes {t_bytes:.4f} ms, operations {t_ops:.4f} ms")
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -559,6 +581,128 @@ def check_rlgc_kernels(raw) -> list[dict]:
     return rows
 
 
+def c32_predictor(workdir: Path):
+    """A full-width c32 ConvTranspose U-FISH predictor on the card: weights
+    from numpy seed 0 (He-normal convs, BatchNorm near identity), encoded
+    as an ONNX file in ``workdir`` and loaded through ``get_predictor`` as
+    a published checkpoint would be."""
+    from merfish3d_tpu_torch.models.onnx_reader import encode_test_model
+    from merfish3d_tpu_torch.models.ufish import get_predictor
+    from merfish3d_tpu_torch.models.ufish_onnx import seeded_onnx_initializers
+
+    path = workdir / "ufish_c32_seed0.onnx"
+    path.write_bytes(encode_test_model(seeded_onnx_initializers(0)))
+    pred = get_predictor(checkpoint_path=path, device="cuda")
+    net = pred.net
+    require(pred.kind == "cnn" and (net.base_features, net.depths, net.up_mode)
+            == (32, (1, 2, 4), "convtranspose"), "the c32 checkpoint did not load as c32")
+    return pred
+
+
+def within_one_bf16_step(got, want) -> tuple[float, bool]:
+    """(max |got - want|, agree): bf16 outputs of the same bf16 operands
+    whose f32 sums ran in another order are at most one bf16 rounding step
+    apart, plus 2**-20 x max|want| for outputs near zero."""
+    import torch
+
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    mag = torch.maximum(got.abs(), want.abs()).clamp(min=2.0**-126)
+    limit = torch.exp2(torch.floor(torch.log2(mag)) - 7) + 2.0**-20 * want.abs().max()
+    return diff.max().item(), bool((diff <= limit).all())
+
+
+def check_conv_kernel(raw, workdir: Path) -> tuple[dict, list[dict]]:
+    """K11 against its plain version at each distinct convolution of one
+    8-plane batch of the production tile (bit 0, z 0-7) through the c32
+    network, on the activations and weights that batch gives the layer, in
+    bf16: times, the time of one ``F.conv2d`` call (cuDNN, bf16,
+    channels_last, bias in, activation not), the bound (bytes over the HBM
+    rate, operations over the dense bf16 tensor rate) and the FP32-core
+    floor. Returns the row of the dominant layer (3x3, 32 -> 32 at 1024²)
+    and every shape's numbers."""
+    import torch
+    import torch.nn.functional as F
+
+    from merfish3d_tpu_torch.models.ufish import _Conv
+    from merfish3d_tpu_torch.ops import conv2d as c2
+
+    pred = c32_predictor(workdir)
+    captured: dict = {}
+    uses: dict = {}  # how often the batch runs each distinct convolution
+
+    def capture(mod, args):
+        x = args[0]
+        key = (*x.shape[:3], *mod.weight.shape, mod.act)
+        uses[key] = uses.get(key, 0) + 1
+        if key not in captured:
+            captured[key] = (x.clone(), mod.weight.to(x.dtype), mod.bias.clone(), mod.act)
+
+    hooks = [m.register_forward_pre_hook(capture) for m in pred.net.modules() if isinstance(m, _Conv)]
+    try:
+        planes = torch.as_tensor(raw.bits[0, 0, :8], device="cuda").to(torch.float32)
+        pred.predict_planes(planes, batch_size=8)
+    finally:
+        for h in hooks:
+            h.remove()
+    require(len(captured) == 11, f"{len(captured)} distinct convolutions in the c32 batch, not 11")
+    # the whole batch through K11 and through the plain version: one-step
+    # bf16 differences travel through 13 layers
+    got = pred.predict_planes(planes, batch_size=8)
+    with plain_convs():
+        want = pred.predict_planes(planes, batch_size=8)
+    diff = (got - want).abs()
+    log(f"c32 batch (8, 1024, 1024) through K11 and through the plain convolutions: max |dp| "
+        f"{diff.max().item():.3e}, mean {diff.mean().item():.3e}, share differing "
+        f"{(diff > 0).float().mean().item():.3e}")
+    require(diff.max().item() <= UNET_ROUTE_ATOL, "the c32 batch's routes disagree")
+    del got, want, diff
+    shapes, err, dominant = [], 0.0, None
+    for key, (x, wt, b, _) in captured.items():
+        n, h, w, kh, kw, cin, co, act = key
+        what = f"{kh}x{kw} {cin}->{co} {act} on ({n}, {h}, {w}, {cin})"
+        k = c2.conv2d_same_cuda(x, wt, b, act=act)
+        p = c2.conv2d_same_plain(x, wt, b, act=act)
+        torch.cuda.synchronize()
+        e, ok = within_one_bf16_step(k, p)
+        require(ok, f"K11 {what} disagrees with the plain version")
+        err = max(err, e)
+        del k, p
+        x_cl = x.permute(0, 3, 1, 2)  # NHWC bytes = channels_last NCHW
+        w_cl = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        b16 = b.to(torch.bfloat16)
+        ms = cuda_ms(lambda: c2.conv2d_same_cuda(x, wt, b, act=act))
+        plain_ms = cuda_ms(lambda: c2.conv2d_same_plain(x, wt, b, act=act))
+        library_ms = cuda_ms(lambda: F.conv2d(x_cl, w_cl, b16, padding=kh // 2))
+        flops = 2.0 * n * h * w * kh * kw * cin * co
+        nbytes = 2.0 * (x.numel() + wt.numel() + n * h * w * co) + 4.0 * co
+        log(f"K11 conv2d_same, {what}: max abs err {e:.3e}, within one bf16 step: {ok}")
+        b_ = bound(nbytes, flops, BF16_TENSOR_FLOP_PER_S)
+        fp32_floor = flops / FP32_FLOP_PER_S * 1e3
+        log(f"  {flops / 1e9:.1f} GFLOP, {nbytes / 1e9:.3f} GB; time: kernel {ms:.3f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, F.conv2d {library_ms:.3f} ms, "
+            f"bound {b_['bound_ms']:.3f} ms ({b_['bound_by']}), FP32-core floor {fp32_floor:.3f} ms")
+        shapes.append(dict(layer=what, uses=uses[key], gflop=flops / 1e9, gbytes=nbytes / 1e9,
+                           max_abs_err=e, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                           fp32_floor_ms=fp32_floor, **b_))
+        if (h, kh, cin, co) == (1024, 3, 32, 32):
+            # an independent reference: the same convolution in float64
+            y64 = F.conv2d(x.double().permute(0, 3, 1, 2), wt.double().permute(3, 2, 0, 1),
+                           b.double(), padding=1)
+            y64 = y64.clamp(min=0.0).permute(0, 2, 3, 1)  # the layer's relu
+            e64, ok64 = within_one_bf16_step(c2.conv2d_same_cuda(x, wt, b, act=act), y64)
+            log(f"  against float64: max abs err {e64:.3e} (max |y| {y64.abs().max().item():.3e}), "
+                f"within one bf16 step: {ok64}")
+            require(ok64, "K11 disagrees with the float64 convolution")
+            del y64
+            dominant = dict(ms=ms, plain_ms=plain_ms, **b_, library_ms=library_ms)
+        del x_cl, w_cl
+    del captured, pred
+    row = dict(name="conv2d_same (K11)", route="cuda", source="merfish3d_tpu_torch/csrc/conv2d.cu",
+               replaces="merfish3d_tpu/ops/conv2d.py:105", max_abs_err=err, **dominant)
+    return row, shapes
+
+
 def production_raw():
     """The production tile's raw data (numpy generator, seed 21): one
     (16, 1024, 1024) tile x 16 bits, 2400 spots, 80 genes + 10 blanks, 8
@@ -596,22 +740,23 @@ def camera_pair(seed: int = 7):
 
 
 # --------------------------------------------------------------- phase 4/5
-def registered_store(raw, **decon):
+def registered_store(raw, **options):
     """ArrayStore of ``raw`` after the readout stage, on CUDA; no
-    deconvolution unless ``decon`` asks for it."""
+    deconvolution and the DoG predictor unless ``options`` ask otherwise."""
     from merfish3d_tpu_torch.cli.simulation.convert_to_datastore import convert_data
     from merfish3d_tpu_torch.pipeline.registration import DataRegistration
 
     store = convert_data(raw)
-    kw = dict(decon_fiducial=False, decon_readout=False)
-    kw.update(decon)
+    kw = dict(decon_fiducial=False, decon_readout=False, ufish_model="dog")
+    kw.update(options)
     DataRegistration(store, device="cuda", **kw).register_all_tiles()
     return store
 
 
-def hermetic_case(distribution: str, decon: bool) -> dict:
+def hermetic_case(distribution: str, decon: bool, cnn: bool = False) -> dict:
     """A hermetic F1 case on CUDA; with ``decon``, RLGC on the readout
-    bits for 12 iterations and none on the fiducials
+    bits for 12 iterations and none on the fiducials; with ``cnn``, the
+    c8 U-FISH checkpoint predicts the spot probabilities
     (``tests/f1_matrix_common.py``)."""
     from merfish3d_tpu_torch.cli.simulation.calculate_f1 import match_spots_f1
     from merfish3d_tpu_torch.cli.simulation.convert_simulation_to_experiment import (
@@ -624,7 +769,7 @@ def hermetic_case(distribution: str, decon: bool) -> dict:
         n_genes=20, n_blanks=4, seed=11, voxel_size_zyx_um=(0.315, 0.098, 0.098),
         distribution=distribution, axial_sigma_um=0.44,
     )
-    store = registered_store(raw, decon_readout=decon, decon_max_iters=12)
+    store = registered_store(raw, decon_readout=decon, decon_max_iters=12, **(CNN_OPTIONS if cnn else {}))
     table = decode_pixels(
         store, device="cuda", minimum_pixels=4,
         magnitude_threshold=(0.9, 10.0), lowpass_sigma=(3.0, 1.0, 1.0), num_tiles=1,
@@ -699,9 +844,30 @@ class DeconRecorder:
         self._module.rlgc_batch = self._fn
 
 
-def production_case(raw, *, decon: bool) -> dict:
+def timed_predictor(reg, seconds: dict) -> None:
+    """Wrap ``reg``'s spot predictor so that ``seconds["predictor"]`` sums
+    its synchronized wall time."""
+    import torch
+
+    inner = reg._predictor
+    seconds["predictor"] = 0.0
+
+    def run(volumes):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(volumes)
+        torch.cuda.synchronize()
+        seconds["predictor"] += time.perf_counter() - t0
+        return out
+
+    reg._predictor = run
+
+
+def production_case(raw, *, decon: bool, cnn: bool = False) -> dict:
     """The production tile through registration (and, with ``decon``, RLGC
-    on its readout bits, 10 iterations) and the decode stage on CUDA."""
+    on its readout bits, 10 iterations; with ``cnn``, the c8 U-FISH
+    checkpoint as the spot predictor, else DoG) and the decode stage on
+    CUDA."""
     import torch
 
     from merfish3d_tpu_torch.cli.simulation.calculate_f1 import match_spots_f1
@@ -711,8 +877,10 @@ def production_case(raw, *, decon: bool) -> dict:
     torch.cuda.reset_peak_memory_stats()
     store = convert_data(raw)
     reg = DataRegistration(store, device="cuda", decon_fiducial=False, decon_readout=decon,
-                           decon_max_iters=PRODUCTION_DECON_ITERS)
+                           decon_max_iters=PRODUCTION_DECON_ITERS,
+                           **(CNN_OPTIONS if cnn else dict(ufish_model="dog")))
     seconds = {}
+    timed_predictor(reg, seconds)
 
     def timed(name, step):
         def run(tile):
@@ -746,6 +914,7 @@ def production_case(raw, *, decon: bool) -> dict:
         "round_shift_residual_px": residual.round(4).tolist(),
         "register_s": t_register,
         "readout_bits_s": seconds["bits"],
+        "predictor_s": seconds["predictor"],
         "decode_s": t_opt + t_final,
         "optimize_s": t_opt,
         "final_decode_s": t_final,
@@ -765,6 +934,51 @@ def production_case(raw, *, decon: bool) -> dict:
     else:
         result["fiducial_registration_first_s"] = seconds["first"]
     return result
+
+
+def c32_tile_case(raw, workdir: Path) -> dict:
+    """The production tile's 16 bits x 16 planes through the c32 predictor
+    in the readout-bit step (no decon): its seconds, planes/s and peak
+    device memory; every bit's u8 map stored."""
+    import torch
+
+    from merfish3d_tpu_torch.cli.simulation.convert_to_datastore import convert_data
+    from merfish3d_tpu_torch.pipeline.registration import DataRegistration
+
+    store = convert_data(raw)
+    reg = DataRegistration(store, device="cuda", decon_fiducial=False, decon_readout=False,
+                           predictor=c32_predictor(workdir))
+    seconds: dict = {}
+    timed_predictor(reg, seconds)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reg._apply_registration_to_bits(0)
+    torch.cuda.synchronize()
+    t_bits = time.perf_counter() - t0
+    planes = raw.bits.shape[1] * raw.bits.shape[2]
+    maps = [store.feature_predictor[(0, b)] for b in range(raw.bits.shape[1])]
+    require(all(m.dtype == np.uint8 and m.shape == raw.bits.shape[2:] for m in maps),
+            "the c32 predictor did not store every bit's u8 map")
+    return {"readout_bits_s": t_bits, "predictor_s": seconds["predictor"], "planes": planes,
+            "planes_per_s": planes / seconds["predictor"],
+            "peak_device_bytes": int(torch.cuda.max_memory_allocated()),
+            "mean_probability_u8": float(np.mean([m.mean() for m in maps]))}
+
+
+@contextlib.contextmanager
+def plain_convs():
+    """Run the U-Net's convolutions through K11's plain version."""
+    from merfish3d_tpu_torch.models import ufish
+    from merfish3d_tpu_torch.ops.conv2d import conv2d_same_plain
+
+    saved = ufish.conv2d_same
+    ufish.conv2d_same = conv2d_same_plain
+    try:
+        yield
+    finally:
+        ufish.conv2d_same = saved
 
 
 @contextlib.contextmanager
@@ -871,6 +1085,7 @@ def main() -> int:
 
     import merfish3d_tpu_torch  # noqa: F401  (sets the full-f32 precision flags)
     from merfish3d_tpu_torch import _build, native
+    from merfish3d_tpu_torch.ops import conv2d as c2
     from merfish3d_tpu_torch.ops import decode as dec
     from merfish3d_tpu_torch.ops import fused_decode as fd
     from merfish3d_tpu_torch.ops import pfft
@@ -908,30 +1123,40 @@ def main() -> int:
     torch.cuda.empty_cache()
     kernels += check_rlgc_kernels(raw)
     torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        k11_row, k11_shapes = check_conv_kernel(raw, Path(tmp))
+    kernels.append(k11_row)
+    torch.cuda.empty_cache()
 
     # -- 4 + 5 + 6. the main path, counting launches
     dec.launch_count = 0
+    c2.launch_count = 0
     fd.launch_count_zy = 0
     fd.launch_count_x_decode = 0
     for counts in (pfft.launch_count, rk.launch_count):
         for name in counts:
             counts[name] = 0
-    for (dist_name, decon), pin in HERMETIC_PINS.items():
+    hermetic = [(*key, False, pin) for key, pin in HERMETIC_PINS.items()]
+    hermetic += [(*key, True, pin) for key, pin in CNN_PINS.items()]
+    for dist_name, decon, cnn, pin in hermetic:
         t0 = time.perf_counter()
-        res = hermetic_case(dist_name, decon)
-        case = f"{dist_name}-0.315um-{'decon' if decon else 'nodecon'}"
+        res = hermetic_case(dist_name, decon, cnn)
+        case = f"{dist_name}-0.315um-{'decon' if decon else 'nodecon'}{'-cnn' if cnn else ''}"
         log(f"hermetic {case} on CUDA: F1 {res['f1']:.4f} "
             f"(pin {pin:.4f}, tp {res['true_positives']} fp {res['false_positives']} "
             f"fn {res['false_negatives']}), {time.perf_counter() - t0:.1f} s")
         require(abs(res["f1"] - pin) <= F1_TOLERANCE, f"{case} F1 off its pin")
+        require(not cnn or res["f1"] >= HERMETIC_PINS[(dist_name, decon)] - F1_TOLERANCE,
+                f"{case} F1 below the DoG pin")
     productions = {}
-    for decon in (False, True):
-        prod = production_case(raw, decon=decon)
-        productions["decon" if decon else "nodecon"] = prod
+    for key, decon, cnn in (("nodecon", False, False), ("decon", True, False), ("nodecon-cnn", False, True)):
+        prod = production_case(raw, decon=decon, cnn=cnn)
+        productions[key] = prod
         torch.cuda.empty_cache()
         log(f"production geometry (1 tile (16, 1024, 1024) x 16 bits, 2400 spots, seed 21, round "
             f"shifts up to 2 px; "
             + (f"RLGC on the readout bits, {PRODUCTION_DECON_ITERS} iterations" if decon else "no decon")
+            + ("; the c8 U-FISH CNN" if cnn else "; the DoG predictor")
             + f"; no deformation, no chromatic) on {card}:")
         log(f"  fiducial registration of 7 moving rounds {prod['fiducial_registration_s']:.3f} s "
             f"({prod['fiducial_registration_s_per_round']:.3f} s a round"
@@ -942,6 +1167,8 @@ def main() -> int:
             log(f"  decon of 16 bits {prod['decon_s']:.3f} s, iterations per bit "
                 f"{prod['decon_iterations_per_bit']}, {prod['decon_ms_per_iteration_per_volume']:.2f} ms "
                 f"an iteration and volume (paired solves)")
+        log(f"  readout bits {prod['readout_bits_s']:.3f} s, of which the spot predictor "
+            f"{prod['predictor_s']:.3f} s")
         log(f"  register_all_tiles (fiducials + readout bits {prod['readout_bits_s']:.3f} s) "
             f"{prod['register_s']:.2f} s; decode stage "
             f"{prod['decode_s']:.2f} s = optimization {prod['optimize_s']:.2f} s + final decode "
@@ -957,6 +1184,23 @@ def main() -> int:
         require(prod["f1"]["f1"] >= 0.5, "production F1 below 0.5")
     require(len(productions["decon"]["decon_iterations_per_bit"]) == raw.bits.shape[1],
             "not every readout bit was deconvolved")
+    with tempfile.TemporaryDirectory() as tmp:
+        c32 = c32_tile_case(raw, Path(tmp))
+    torch.cuda.empty_cache()
+    log(f"c32 U-FISH (seeded weights, ConvTranspose decoder) on the production tile's "
+        f"{c32['planes']} planes of 1024^2, no decon, on {card}: predictor {c32['predictor_s']:.3f} s "
+        f"({c32['planes_per_s']:.1f} planes/s), readout-bit step {c32['readout_bits_s']:.3f} s, peak "
+        f"device memory {c32['peak_device_bytes'] / 2**30:.2f} GiB (not decoded: random weights)")
+    # the tile's convolutions: every batch runs the layers of phase 3
+    batches = -(-c32["planes"] // 8)
+    tflop = batches * sum(s["uses"] * s["gflop"] for s in k11_shapes) / 1e3
+    tbytes = batches * sum(s["uses"] * s["gbytes"] for s in k11_shapes) / 1e3
+    c32.update(conv_tflop=tflop, conv_tbytes=tbytes,
+               k11_s=batches * sum(s["uses"] * s["ms"] for s in k11_shapes) / 1e3)
+    log(f"  its convolutions: {tflop:.1f} TFLOP, {tbytes:.3f} TB of activations and weights; byte "
+        f"bound {tbytes * 1e12 / HBM_BYTES_PER_S:.3f} s, bf16 tensor-rate bound "
+        f"{tflop * 1e12 / BF16_TENSOR_FLOP_PER_S:.3f} s, FP32-core floor "
+        f"{tflop * 1e12 / FP32_FLOP_PER_S:.3f} s; K11 at phase 3's times {c32['k11_s']:.3f} s")
 
     # -- 6. camera geometry pair
     camera = camera_case(cam_fixed, cam_moving)
@@ -976,6 +1220,7 @@ def main() -> int:
         "dft_mid_conv (K9)": pfft.launch_count["dft_mid_conv"],
         "ratio_kld_f32 (K4)": rk.launch_count["ratio_kld"],
         "update_select_f32 (K5)": rk.launch_count["update_select"],
+        "conv2d_same (K11)": c2.launch_count,
     }
     log(f"launch counts on the main path: {launches}")
     require(all(n > 0 for n in launches.values()), "a kernel of the path never launched")
@@ -994,7 +1239,8 @@ def main() -> int:
 
     for row in kernels:
         row["launches"] = launches[row["name"]]
-    summary = {"production": {}, "camera_pair": camera, "solve_twice": twice}
+    summary = {"production": {}, "c32_tile": c32, "k11_layers": k11_shapes, "camera_pair": camera,
+               "solve_twice": twice}
     for key, prod in productions.items():
         summary["production"][key] = {k: v for k, v in prod.items() if k != "f1"}
         summary["production"][key]["f1"] = prod["f1"]["f1"]

@@ -1,13 +1,13 @@
-"""PyTorch/CUDA port of merfish3d_tpu: fiducial round registration and
-the decode stage.
+"""PyTorch/CUDA port of merfish3d_tpu: fiducial round registration, RLGC
+deconvolution, U-FISH spot prediction and the decode stage.
 
 A second package beside :mod:`merfish3d_tpu` (the JAX reference, which
-this package never imports). It runs the hermetic no-decon chain —
+this package never imports). It runs the hermetic single-tile chain —
 generate → convert → fiducial round registration (phase correlation) →
-per-bit spot probability → normalization optimization → lowpass +
-nearest-codeword decode → component extraction → blank-fraction filter →
-F1 — on in-memory arrays with torch, numpy, scipy and the standard
-library only.
+RLGC deconvolution → per-bit spot probability (the U-FISH CNN or DoG) →
+normalization optimization → lowpass + nearest-codeword decode →
+component extraction → blank-fraction filter → F1 — on in-memory arrays
+with torch, numpy, scipy and the standard library only.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU. On a CUDA tensor the hot paths launch the hand-written

@@ -19,9 +19,13 @@ resampled into the reference frame are stored as u16.
 Then the readout bits, grouped by PSF (excitation < 600 nm: PSF 1, else
 2) and chunked by ``min(bit_batch_size, max_vmap_batch)``, are
 deconvolved when ``decon_readout`` (seed ``7 + 100·tile + first bit``,
-with the same batch-or-single choice), the DoG predictor gives the spot
-probability, and both are stored in the persisted forms (u16, u8 k/255);
-deconvolved volumes stay on the device until then. The decoder resamples
+with the same batch-or-single choice), the spot predictor gives the
+probability on the device — the U-FISH CNN resolved from ``ufish_model``
+/ ``ufish_checkpoint`` as the reference resolves it (``"dog"`` asks for
+the DoG predictor; a CNN alias with no local checkpoint falls back to it
+with a warning), or an injected ``predictor`` — and both are stored in
+the persisted forms (u16, u8 k/255); deconvolved volumes stay on the
+device until then. The decoder resamples
 each bit by its round's transform. The single tile's global transform is
 the identity at its stage position.
 """
@@ -34,7 +38,7 @@ import numpy as np
 import torch
 
 from ..datastore.array_store import ArrayStore
-from ..models.ufish import DoGSpotPredictor
+from ..models.ufish import DEFAULT_UFISH_MODEL, get_predictor
 from ..ops.registration import register_rounds_to_fixed
 from ..ops.rlgc import chunked_rlgc, max_vmap_batch, rlgc_batch
 from .handoff import to_cache_forms
@@ -46,7 +50,9 @@ class DataRegistration:
         store: ArrayStore,
         *,
         device="cuda",
-        predictor: DoGSpotPredictor | None = None,
+        predictor: Optional[torch.nn.Module] = None,
+        ufish_model: str = DEFAULT_UFISH_MODEL,
+        ufish_checkpoint=None,
         bit_batch_size: int = 8,
         round_batch_size: int = 4,
         decon_fiducial: bool = True,
@@ -60,7 +66,10 @@ class DataRegistration:
             )
         self._store = store
         self._device = torch.device(device)
-        self._predictor = predictor if predictor is not None else DoGSpotPredictor()
+        self._predictor = (
+            predictor if predictor is not None
+            else get_predictor(ufish_model, ufish_checkpoint, device=self._device)
+        )
         self._bit_batch_size = max(1, int(bit_batch_size))
         self._round_batch_size = max(1, int(round_batch_size))
         self._decon_fiducial = bool(decon_fiducial)

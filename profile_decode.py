@@ -40,6 +40,17 @@ three ways — through the kernels, through their plain versions on the
 card (cuFFT), and on the host (pocketfft) — for 1, 3 and 10 iterations,
 and prints how far each pair of routes differs: the floor between two
 correct FP32 implementations of the solve. The host solves take minutes.
+
+    python3 profile_decode.py --ufish
+
+instead runs the full-width c32 U-FISH predictor (seeded weights, the
+ConvTranspose decoder, as ``chip_smoke.py`` loads it) over the first 64
+planes of the production tile (8 batches of 8 planes of 1024²) under
+``torch.profiler``, after a warm-up batch: the wall, the device busy
+share, and device time by group — K11, the per-plane normalization (sort,
+percentile gather and arithmetic), reflect padding, max-pool,
+concatenation, casts and copies (bf16 casts, depth-to-space) — with the
+profiler's table.
 """
 
 from __future__ import annotations
@@ -130,7 +141,7 @@ def profile_registration(raw) -> None:
 
     log = chip_smoke.log
     reg = DataRegistration(convert_data(raw), device="cuda", decon_fiducial=False,
-                           decon_readout=False)
+                           decon_readout=False, ufish_model="dog")
     for run in (1, 2):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             torch.cuda.synchronize()
@@ -202,6 +213,60 @@ def profile_decon(raw) -> None:
     log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=25))
 
 
+# device kernels by name fragment -> group of the U-FISH breakdown (first match)
+UFISH_KERNELS = (
+    ("conv2d_same_k", "K11 conv2d_same"),
+    ("Sort", "normalize: sort"),
+    ("sort", "normalize: sort"),
+    ("CatArrayBatchedCopy", "concatenation"),
+    ("reduce_kernel", "max-pool"),
+    ("index", "reflect pad and percentile gather"),
+    ("gather", "reflect pad and percentile gather"),
+    ("copy", "casts and copies (bf16 casts, depth-to-space)"),
+    ("Memcpy", "casts and copies (bf16 casts, depth-to-space)"),
+    ("Memset", "casts and copies (bf16 casts, depth-to-space)"),
+)
+
+
+def profile_ufish(raw) -> None:
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    log = chip_smoke.log
+    with tempfile.TemporaryDirectory() as tmp:
+        pred = chip_smoke.c32_predictor(Path(tmp))
+    planes = torch.as_tensor(raw.bits[0, :4], device="cuda").to(torch.float32).reshape(-1, 1024, 1024)
+    pred.predict_planes(planes[:8])  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pred.predict_planes(planes)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.events()
+    busy = device_busy_seconds(events)
+    n = planes.shape[0]
+    log(f"c32 U-FISH over {n} planes of 1024^2 (8-plane batches): {wall:.4f} s, {n / wall:.2f} planes/s; "
+        f"device busy {busy:.4f} s = {busy / wall:.4f} of the wall")
+    rows: dict = collections.defaultdict(float)
+    calls: dict = collections.defaultdict(int)
+    for e in events:
+        if e.device_type != DeviceType.CUDA:
+            continue
+        label = next((lab for frag, lab in UFISH_KERNELS if frag in e.name),
+                     "other elementwise ops (normalization arithmetic)")
+        rows[label] += (e.time_range.end - e.time_range.start) * 1e-3
+        calls[label] += 1
+    total = sum(rows.values())
+    for label, ms in sorted(rows.items(), key=lambda kv: -kv[1]):
+        log(f"  {label:52s} {ms:10.3f} ms  {calls[label]:6d} launches  {100 * ms / total:6.2f} % of device time")
+    log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=20))
+
+
 def solve_routes(raw) -> None:
     from merfish3d_tpu_torch.ops.rlgc import binomial_split
 
@@ -242,6 +307,9 @@ def main() -> int:
     log(f"generator {time.perf_counter() - t0:.3f} s")
     if "--solve-routes" in sys.argv[1:]:
         solve_routes(raw)
+        return 0
+    if "--ufish" in sys.argv[1:]:
+        profile_ufish(raw)
         return 0
     profile_registration(raw)
     profile_decon(raw)

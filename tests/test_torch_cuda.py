@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels of merfish3d_tpu_torch against their plain
-torch versions, on the card (decode K1-K3, DFT K6-K10, RLGC K4 and K5).
+torch versions, on the card (decode K1-K3, DFT K6-K10, RLGC K4 and K5,
+the U-FISH convolution K11).
 
 Needs a CUDA device and nvcc; skips without them. Imports neither JAX
 nor the JAX package, so it runs where those are absent:
@@ -295,3 +296,94 @@ def test_rlgc_solve_on_card_matches_cpu(cuda):
     assert it_g == it_c
     assert np.mean(np.abs(gpu - cpu) > 1e-4 * np.abs(cpu).max()) <= 0.01
     assert np.linalg.norm(gpu - cpu) <= 1e-2 * np.linalg.norm(cpu)
+
+
+# ------------------------------------------------------------ U-FISH K11
+def _within_one_bf16_step(got, want):
+    """One bf16 rounding step at the larger magnitude, plus 2**-20 x max
+    for outputs near zero: the same bf16 operands, f32 sums in another
+    order."""
+    got, want = got.float(), want.float()
+    mag = torch.maximum(got.abs(), want.abs()).clamp(min=2.0**-126)
+    limit = torch.exp2(torch.floor(torch.log2(mag)) - 7) + 2.0**-20 * want.abs().max()
+    return bool(((got - want).abs() <= limit).all())
+
+
+_K11_CASES = [
+    ((2, 64, 160, 32), (3, 3, 32, 32), "relu"),  # ragged x tile
+    ((1, 45, 40, 1), (3, 3, 1, 8), "relu"),  # the first conv: Cin = 1, ragged y tile
+    ((2, 32, 64, 64), (2, 2, 64, 32), "none"),  # the resize decoder's 2x2 conv
+    ((1, 33, 130, 24), (1, 1, 24, 1), "sigmoid"),  # the head: Co = 1
+    ((1, 16, 16, 128), (3, 3, 128, 256), "none"),  # Cin and Co past one chunk each
+    ((3, 20, 36, 5), (1, 3, 5, 19), "relu"),  # odd widths, a 1x3 kernel
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,kshape,act", _K11_CASES)
+def test_k11_matches_plain(cuda, shape, kshape, act, dtype):
+    """K11 against its plain version (F.conv2d on f32 copies): bf16 within
+    one bf16 step, f32 within 2e-5 x max (sums in another order)."""
+    from merfish3d_tpu_torch.ops import conv2d as c2
+
+    rng = np.random.default_rng(9)
+    x = torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device=cuda).to(dtype)
+    w = torch.as_tensor((rng.standard_normal(kshape) * 0.2).astype(np.float32), device=cuda).to(dtype)
+    b = torch.as_tensor(rng.standard_normal(kshape[-1]).astype(np.float32), device=cuda)
+    before = c2.launch_count
+    k = c2.conv2d_same(x, w, b, act=act)
+    p = c2.conv2d_same_plain(x, w, b, act=act)
+    torch.cuda.synchronize()
+    assert c2.launch_count == before + 1 and k.dtype == dtype and k.shape == p.shape
+    if dtype == torch.bfloat16:
+        assert _within_one_bf16_step(k, p)
+        k32 = c2.conv2d_same_cuda(x, w, b, act=act, out_dtype=torch.float32)
+        torch.testing.assert_close(k32, c2.conv2d_same_plain(x, w, b, act=act, out_dtype=torch.float32),
+                                   rtol=0, atol=2e-5 * p.float().abs().max().item())
+    else:
+        assert (k - p).abs().max().item() <= 2e-5 * p.abs().max().item()
+
+
+def test_k11_wrapper_refuses_bad_input(cuda):
+    from merfish3d_tpu_torch.ops import conv2d as c2
+
+    x = torch.zeros((1, 8, 8, 4), device=cuda, dtype=torch.bfloat16)
+    w = torch.zeros((3, 3, 4, 4), device=cuda, dtype=torch.bfloat16)
+    b = torch.zeros(4, device=cuda)
+    with pytest.raises(ValueError):
+        c2.conv2d_same_cuda(x.cpu(), w, b)  # CPU tensor
+    with pytest.raises(TypeError):
+        c2.conv2d_same_cuda(x, w.float(), b)  # mixed operand types
+    with pytest.raises(ValueError):
+        c2.conv2d_same_cuda(x, torch.zeros((5, 5, 4, 4), device=cuda, dtype=torch.bfloat16), b)
+    with pytest.raises(ValueError):
+        c2.conv2d_same_cuda(x, w[:, :, :3], b)  # Cin mismatch
+    with pytest.raises(TypeError):
+        c2.conv2d_same_cuda(x, w, b, out_dtype=torch.float16)
+
+
+def test_predictor_batch_on_card_matches_plain(cuda, monkeypatch):
+    """One 8-plane batch of 256x256 planes through the c8 checkpoint's
+    U-Net on the card, through K11 and through the plain convolutions: one
+    layer's one-step bf16 differences travel through the later layers, so
+    the maps agree within 2**-7 with at most 1 % of the values differing;
+    and with the same predictor on the CPU."""
+    from pathlib import Path
+
+    from merfish3d_tpu_torch.models import ufish
+    from merfish3d_tpu_torch.ops import conv2d as c2
+
+    variables = ufish.load_checkpoint(Path(__file__).parent / "data" / "ufish_synthetic_c8.pkl")
+    planes = np.random.default_rng(10).poisson(40.0, (8, 256, 256)).astype(np.float32)
+    planes[:, 100:104, 50:54] += 900.0
+    pred = ufish.UFishPredictor(params=variables, device=cuda)
+    before = c2.launch_count
+    got = pred.predict_planes(torch.as_tensor(planes, device=cuda))
+    assert c2.launch_count - before == 13  # every conv of the c8 U-Net, once
+    monkeypatch.setattr(ufish, "conv2d_same", c2.conv2d_same_plain)
+    want = pred.predict_planes(torch.as_tensor(planes, device=cuda))
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 2.0**-7
+    assert (got != want).float().mean().item() <= 0.01
+    cpu = ufish.UFishPredictor(params=variables, device="cpu").predict(planes)
+    np.testing.assert_allclose(got.cpu().numpy(), cpu, rtol=0, atol=2.0**-7)

@@ -33,12 +33,14 @@ def table_from_frame(df: pd.DataFrame) -> dict:
     return {c: df[c].to_numpy() for c in df.columns}
 
 
-def reference_state(workdir: Path, case: MatrixCase = SLICE_CASE) -> dict:
+def reference_state(workdir: Path, case: MatrixCase = SLICE_CASE, ufish_checkpoint=None) -> dict:
     """Run the reference chain for ``case`` and read back its inputs,
-    intermediate state and outputs as numpy."""
+    intermediate state and outputs as numpy; with ``ufish_checkpoint``
+    the U-FISH CNN of that checkpoint predicts the spot probabilities
+    instead of the DoG predictor."""
     from merfish3d_tpu.datastore import qi2labDataStore
 
-    f1 = run_matrix_case(case, workdir)
+    f1 = run_matrix_case(case, workdir, ufish_checkpoint=ufish_checkpoint)
     raw = workdir / "raw"
     ds = qi2labDataStore(workdir / "qi2labdatastore", validate=False)
     n_bits, n_rounds = int(ds.num_bits), int(ds.num_rounds)
