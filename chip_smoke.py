@@ -21,12 +21,14 @@ Run from the root of a checkout. Phases, each raising on failure:
    8-plane batch of the production tile through a full-width c32
    ConvTranspose U-FISH network (seeded weights), on the activations that
    batch gives each layer;
-4. the hermetic F1 cases uniform/cells-0.315um-nodecon (fiducial
-   registration + decode) and uniform/cells-0.315um-decon (RLGC on the
-   readout bits, 12 iterations, as ``tests/f1_matrix_common.py`` runs
-   them) on CUDA with the DoG predictor, and the CNN cases
-   uniform-0.315um-nodecon and cells-0.315um-decon with the repo's trained
-   c8 U-FISH checkpoint, each held to its pinned F1 ±0.02;
+4. the twelve hermetic DoG F1 cases of the standard and exhaustive
+   matrices ({uniform, cells} x {0.315, 1.0, 1.5 um axial} x {no-decon,
+   decon}: fiducial registration + decode, with RLGC on the readout bits
+   for 12 iterations in the decon cases, each with its matrix case's
+   depth, component floor, lowpass and match radius, as
+   ``tests/f1_matrix_common.py`` runs them) and the two CNN cases
+   (uniform-0.315um-nodecon, cells-0.315um-decon with the repo's trained
+   c8 U-FISH checkpoint) on CUDA, each held to its pinned F1 ±0.02;
 5. the production geometry — one (16, 1024, 1024) tile × 16 bits, 2400
    spots, 8 fiducial rounds rigidly shifted by up to 2 px — through the
    port's fiducial registration and then the decode stage on CUDA, once
@@ -35,13 +37,14 @@ Run from the root of a checkout. Phases, each raising on failure:
    round shift within 0.3 px of the injected one, F1 >= 0.5, with wall
    times, voxels/s, the decon's iterations and ms per iteration and
    volume, and peak device memory; then once more without deconvolution
-   with the c8 CNN predicting the spot probabilities, and the tile's 16
+   with the c8 CNN predicting the spot probabilities; then the fiducial
+   rounds alone registered with RLGC on the fiducials (10 iterations,
+   ``decon_fiducial=True``), every round within 0.3 px; then the tile's 16
    bits x 16 planes through the full-width c32 network (seeded weights,
    encoded to ONNX and loaded as a published checkpoint would be: its
    seconds, planes/s and peak memory; random weights give meaningless
-   maps, so it is not decoded). Cut to what is ported: no fiducial
-   deconvolution (the reference's production case has none either), no
-   deformation, no chromatic aberration;
+   maps, so it is not decoded). Cut to what is ported: no deformation, no
+   chromatic aberration;
 6. the camera geometry — one (32, 2048, 2048) bead pair with a known
    shift — through ``register_pair_to_fixed`` on CUDA, recovered within
    0.3 px.
@@ -49,7 +52,10 @@ Run from the root of a checkout. Phases, each raising on failure:
 The launch counts of the eleven kernels are zeroed before phase 4 and read
 after phase 6: every kernel must have run on the main path. Then one
 production bit is solved twice more, through the kernels and through
-their plain versions, from the same generator seed: the two must agree.
+their plain versions, from the same generator seed, and so is one camera
+frame (the pair's fixed volume, padded to (48, 2176, 2176): K6, K7 and K8
+in every convolution): each pair must agree, with equal iterations; K6,
+K7 and K8 are then checked and timed at that frame's shapes.
 The last lines are the kernel table as JSON and the result line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 without a CUDA device or outside a checkout.
@@ -70,11 +76,21 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-# tests/test_f1_matrix.py: (distribution, decon) -> pinned F1
+# tests/test_f1_matrix.py EXPECTED_F1, all twelve DoG cases of the standard
+# and exhaustive matrices: (distribution, axial step um, decon) -> pinned F1
 HERMETIC_PINS = {
-    ("uniform", False): 0.9480, ("cells", False): 0.9474,
-    ("uniform", True): 0.9573, ("cells", True): 0.9655,
+    ("uniform", 0.315, False): 0.9480, ("cells", 0.315, False): 0.9474,
+    ("uniform", 0.315, True): 0.9573, ("cells", 0.315, True): 0.9655,
+    ("uniform", 1.0, False): 0.9297, ("cells", 1.0, False): 0.9474,
+    ("uniform", 1.5, False): 0.9379, ("cells", 1.5, False): 0.9381,
+    ("uniform", 1.0, True): 0.9541, ("cells", 1.0, True): 0.9655,
+    ("uniform", 1.5, True): 0.9415, ("cells", 1.5, True): 0.9565,
 }
+# tests/f1_matrix_common.py MatrixCase, as plain numbers: planes per axial
+# step, the component floor per plane count, spots per distribution
+MATRIX_NZ = {0.315: 12, 1.0: 6, 1.5: 4}
+MATRIX_MIN_PIXELS = {12: 4, 6: 3, 4: 2}
+MATRIX_SPOTS = {"uniform": 170, "cells": 60}
 F1_TOLERANCE = 0.02
 FLOAT_RTOL = 1e-4  # f32 kernel outputs vs plain: max |err| <= 1e-4 * max |x|
 F16_RTOL = 2.0**-10  # f16 outputs: at most one f16 rounding step apart
@@ -95,13 +111,22 @@ RATIO_ULPS = 2  # K4's ratios vs plain: the same division, at most 2 ulp apart
 # that floor.
 SOLVE_MAX_RTOL = 2e-2
 SOLVE_L2_RTOL = 5e-3
+# The camera frame (32, 2048, 2048) solved the same way: a frame that is
+# mostly flat background puts the consensus within rounding of zero at
+# far more voxels. Two plain solves from the same splits, float32 cuFFT
+# against complex128 transforms, differ by 2.6e-2 max |delta| / max
+# |recon| and 6.1e-3 in L2 after one iteration, 1.3e-2 / 6.1e-3 after
+# 10 (``profile_decode.py --camera-routes``, NVIDIA H100 80GB HBM3).
+# Equal iteration counts are required, and about 4x that floor.
+CAMERA_SOLVE_MAX_RTOL = 5e-2
+CAMERA_SOLVE_L2_RTOL = 2.5e-2
 PRODUCTION_DECON_ITERS = 10
 # DataRegistration's options for the repo's trained c8 U-FISH checkpoint,
 # as tests/f1_matrix_common.py passes them
 CNN_OPTIONS = dict(ufish_model="synthetic-cnn",
                    ufish_checkpoint=ROOT / "tests" / "data" / "ufish_synthetic_c8.pkl")
-# tests/test_f1_matrix.py EXPECTED_F1_CNN: (distribution, decon) -> pinned F1
-CNN_PINS = {("uniform", False): 0.9666, ("cells", True): 0.9744}
+# tests/test_f1_matrix.py EXPECTED_F1_CNN: (distribution, axial step, decon) -> pinned F1
+CNN_PINS = {("uniform", 0.315, False): 0.9666, ("cells", 0.315, True): 0.9744}
 # a U-Net batch through K11 vs through the plain convolutions: the CPU
 # predictor's bound against the reference's bf16 path (tests/test_torch_ufish.py)
 UNET_ROUTE_ATOL = 0.05
@@ -334,12 +359,16 @@ def _dft_flops(shape, axes, real_input: bool) -> float:
     return numel * per
 
 
-def check_dft(name, kernel, plain, library, xr, xi, axes, replaces, *, record=True):
+# every DFT timing of the run (forward and inverse), for the summary
+DFT_TIMES: list[dict] = []
+
+
+def check_dft(name, kernel, plain, library, xr, xi, axes, replaces):
     """One DFT kernel, forward on (xr, xi) and inverse on the plain
     spectrum, against its plain version within DFT_RTOL x max|X|; times,
-    bound and the ``torch.fft`` yardstick of the forward. ``axes`` are in
-    the order the kernel transforms them. Returns (row or None, the plain
-    forward spectrum)."""
+    bound and the ``torch.fft`` yardstick of the forward, also kept in
+    DFT_TIMES. ``axes`` are in the order the kernel transforms them.
+    Returns (row, the plain forward spectrum)."""
     import torch
 
     shape = tuple(xr.shape)
@@ -372,7 +401,10 @@ def check_dft(name, kernel, plain, library, xr, xi, axes, replaces, *, record=Tr
         f"plain {inv_plain_ms:.3f} ms")
     row = dict(name=name, route="cuda", source="merfish3d_tpu_torch/csrc/pfft.cu", replaces=replaces,
                max_abs_err=max(err, ierr), ms=ms, plain_ms=plain_ms, **b, library_ms=library_ms)
-    return (row if record else None), fp
+    DFT_TIMES.append(dict(name=name, shape=list(shape), real_input=xi is None, ms=ms, inverse_ms=inv_ms,
+                          plain_ms=plain_ms, inverse_plain_ms=inv_plain_ms, library_ms=library_ms,
+                          bound_ms=b["bound_ms"], max_rel_err=max(err / scale, ierr / iscale)))
+    return row, fp
 
 
 def check_dft_kernels(raw, camera_fixed) -> list[dict]:
@@ -426,7 +458,7 @@ def check_dft_kernels(raw, camera_fixed) -> list[dict]:
     spec = tuple(t.reshape(nz, ny, nx) for t in spec)
     _, spec = check_dft(
         "dft_middle (K7)", pfft.dft_middle_cuda, pfft.dft_middle_plain, lambda z: fft(z, dim=1),
-        *spec, (1,), "merfish3d_tpu/ops/pfft.py:337", record=False,
+        *spec, (1,), "merfish3d_tpu/ops/pfft.py:337",
     )
     row, _ = check_dft(
         "dft_leading (K8)", pfft.dft_leading_cuda, pfft.dft_leading_plain, lambda z: fft(z, dim=0),
@@ -438,14 +470,13 @@ def check_dft_kernels(raw, camera_fixed) -> list[dict]:
     # the largest (z, x) plane the gate admits, bigger than a block's shared memory
     nz, nx = max(((z, 128 * n1) for z in range(2, 97) for n1 in range(2, 25)
                   if pfft.zx_supported((z, 8, 128 * n1))), key=lambda p: (p[0] * p[1], p[1]))
-    log(f"K10 at the largest admitted plane ({nz}, {nx}): {nz * nx * 8 / 1024:.0f} KB per y row, "
-        f"chunks {pfft.zx_chunks(nz, nx)}")
+    log(f"K10 at the largest admitted plane ({nz}, {nx}): {nz * nx * 8 / 1024:.0f} KB per y row")
     big = torch.as_tensor(
         np.random.default_rng(0).standard_normal((nz, 64, nx)).astype(np.float32), device=dev
     )
     check_dft("dft_zx (K10)", pfft.dft_zx_cuda, pfft.dft_zx_plain,
               lambda z: torch.fft.fftn(z, dim=(0, 2)), big, None, (2, 0),
-              "merfish3d_tpu/ops/pfft.py:660", record=False)
+              "merfish3d_tpu/ops/pfft.py:660")
     return rows
 
 
@@ -489,11 +520,11 @@ def check_rlgc_kernels(raw) -> list[dict]:
     rows = []
     voxels = float(np.prod(shape))
 
-    # K10 at the RLGC shape: logged, its row stays the registration crop's
+    # K10 at the RLGC shape: in DFT_TIMES, its row stays the registration crop's
     centered = (padded - padded.mean()).contiguous()
     _, spec = check_dft("dft_zx (K10)", pfft.dft_zx_cuda, pfft.dft_zx_plain,
                         lambda z: torch.fft.fftn(z, dim=(0, 2)), centered, None, (2, 0),
-                        "merfish3d_tpu/ops/pfft.py:660", record=False)
+                        "merfish3d_tpu/ops/pfft.py:660")
 
     log(f"K9 dft_mid_conv_f32 on the K10 spectrum of the bit {shape}, times its OTF")
     hr, hi = solve.otf
@@ -753,29 +784,30 @@ def registered_store(raw, **options):
     return store
 
 
-def hermetic_case(distribution: str, decon: bool, cnn: bool = False) -> dict:
-    """A hermetic F1 case on CUDA; with ``decon``, RLGC on the readout
-    bits for 12 iterations and none on the fiducials; with ``cnn``, the
-    c8 U-FISH checkpoint predicts the spot probabilities
-    (``tests/f1_matrix_common.py``)."""
+def hermetic_case(distribution: str, step: float, decon: bool, cnn: bool = False) -> dict:
+    """A hermetic F1 case on CUDA at axial spacing ``step`` um, with the
+    matrix case's own depth, component floor, lowpass and match radius
+    (``tests/f1_matrix_common.py``); with ``decon``, RLGC on the readout
+    bits for 12 iterations and none on the fiducials; with ``cnn``, the c8
+    U-FISH checkpoint predicts the spot probabilities."""
     from merfish3d_tpu_torch.cli.simulation.calculate_f1 import match_spots_f1
     from merfish3d_tpu_torch.cli.simulation.convert_simulation_to_experiment import (
         generate_raw_experiment,
     )
     from merfish3d_tpu_torch.cli.simulation.pixeldecode import decode_pixels
 
+    nz = MATRIX_NZ[step]
     raw = generate_raw_experiment(
-        shape=(12, 96, 96), n_spots=170 if distribution == "uniform" else 60,
-        n_genes=20, n_blanks=4, seed=11, voxel_size_zyx_um=(0.315, 0.098, 0.098),
-        distribution=distribution, axial_sigma_um=0.44,
+        shape=(nz, 96, 96), n_spots=MATRIX_SPOTS[distribution], n_genes=20, n_blanks=4, seed=11,
+        voxel_size_zyx_um=(step, 0.098, 0.098), distribution=distribution, axial_sigma_um=0.44,
     )
     store = registered_store(raw, decon_readout=decon, decon_max_iters=12, **(CNN_OPTIONS if cnn else {}))
     table = decode_pixels(
-        store, device="cuda", minimum_pixels=4,
-        magnitude_threshold=(0.9, 10.0), lowpass_sigma=(3.0, 1.0, 1.0), num_tiles=1,
-        num_iterations=2,
+        store, device="cuda", minimum_pixels=MATRIX_MIN_PIXELS[nz],
+        magnitude_threshold=(0.9, 10.0), lowpass_sigma=(max(3.0 * 0.315 / step, 0.5), 1.0, 1.0),
+        num_tiles=1, num_iterations=2,
     )
-    return match_spots_f1(table, raw.ground_truth, radius_um=1.0)
+    return match_spots_f1(table, raw.ground_truth, radius_um=1.5 if step >= 1.5 else 1.0)
 
 
 def decode_stage(store) -> tuple[dict, float, float]:
@@ -1042,6 +1074,110 @@ def solve_twice(raw) -> dict:
             "max_rel_delta": max_rel, "l2_rel_delta": l2_rel}
 
 
+def fiducial_decon_case(raw) -> dict:
+    """The production tile's shifted fiducial rounds registered once on
+    CUDA with RLGC on the fiducials (``decon_fiducial=True``, the default,
+    10 iterations): the step's wall, the moving rounds' solves (wall and
+    iterations), peak device memory and every round's shift residual."""
+    import torch
+
+    from merfish3d_tpu_torch.cli.simulation.convert_to_datastore import convert_data
+    from merfish3d_tpu_torch.pipeline.registration import DataRegistration
+
+    store = convert_data(raw)
+    reg = DataRegistration(store, device="cuda", decon_fiducial=True, decon_readout=False,
+                           decon_max_iters=PRODUCTION_DECON_ITERS, ufish_model="dog")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with DeconRecorder() as solves:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reg._generate_registrations(0)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    residual = round_shift_residual_px(store, raw)
+    return {"fiducial_registration_s": seconds, "moving_decon_s": solves.seconds,
+            "moving_decon_iterations": solves.iters,
+            "max_round_shift_residual_px": float(residual.max()),
+            "round_shift_residual_px": residual.round(4).tolist(),
+            "peak_device_bytes": int(torch.cuda.max_memory_allocated())}
+
+
+def camera_frame_route(image, psf, *, plain: bool, max_iters: int = PRODUCTION_DECON_ITERS,
+                       context=contextlib.nullcontext) -> dict:
+    """One camera frame (a (32, 2048, 2048) volume as an image)
+    deconvolved through ``chunked_rlgc`` with ``psf``, seed 7, in one tile
+    (``crop_yx=2048``: it pads to (48, 2176, 2176), past K10's gate, so
+    every convolution composes K6, K7 and K8), through the kernels or
+    their plain versions, inside ``context()``: the recon, iteration
+    counts, wall, peak device memory and kernel launches."""
+    import torch
+
+    from merfish3d_tpu_torch.ops import pfft, rlgc
+    from merfish3d_tpu_torch.ops import rlgc_kernels as rk
+
+    launched = lambda: sum(pfft.launch_count.values()) + sum(rk.launch_count.values())  # noqa: E731
+    core = rlgc._rlgc_core
+    iters = []
+
+    def recorded(*args, **kwargs):
+        recon, n = core(*args, **kwargs)
+        iters.append(int(n))
+        return recon, n
+
+    rlgc._rlgc_core = recorded
+    try:
+        with plain_versions() if plain else contextlib.nullcontext(), context():
+            before = launched()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = rlgc.chunked_rlgc(image, psf, crop_yx=2048, seed=7, max_iters=max_iters, out="device")
+            torch.cuda.synchronize()
+            return dict(recon=out, iterations=iters, seconds=time.perf_counter() - t0,
+                        peak_device_bytes=int(torch.cuda.max_memory_allocated()),
+                        launches=launched() - before)
+    finally:
+        rlgc._rlgc_core = core
+
+
+def camera_frame_solve(image, psf) -> dict:
+    """The camera frame solved twice from one seed, through the kernels
+    and through their plain versions: both walls, iteration counts, peak
+    device memory and launches, and how far the two recons differ."""
+    k = camera_frame_route(image, psf, plain=False)
+    p = camera_frame_route(image, psf, plain=True)
+    require(k["launches"] > 0 and p["launches"] == 0,
+            f"kernel launches: {k['launches']} through the kernels, {p['launches']} through the plain versions")
+    max_rel, l2_rel = rel_delta(k.pop("recon"), p.pop("recon"))
+    return {"kernels": k, "plain": p, "max_rel_delta": max_rel, "l2_rel_delta": l2_rel}
+
+
+def check_camera_frame_dft(image, psf) -> None:
+    """K6, K7 and K8, forward and inverse, at the shapes the camera-frame
+    solve gives them: the frame padded to (48, 2176, 2176), less its mean
+    (K6 on its real rows, K7 and K8 on the spectra that follow)."""
+    import torch
+
+    from merfish3d_tpu_torch.ops import fftutils, pfft
+
+    fft = torch.fft.fft
+    padded = fftutils.pad_symmetric(image, fftutils.linear_fft_pad_width(tuple(image.shape), psf.shape))
+    frame = (padded - padded.mean()).contiguous()
+    del padded
+    nz, ny, nx = frame.shape
+    _, spec = check_dft("dft_trailing (K6)", pfft.dft_trailing_cuda, pfft.dft_trailing_plain,
+                        lambda z: fft(z, dim=1), frame.reshape(nz * ny, nx), None, (1,),
+                        "merfish3d_tpu/ops/pfft.py:203")
+    del frame
+    spec = tuple(t.reshape(nz, ny, nx) for t in spec)
+    _, spec = check_dft("dft_middle (K7)", pfft.dft_middle_cuda, pfft.dft_middle_plain,
+                        lambda z: fft(z, dim=1), *spec, (1,), "merfish3d_tpu/ops/pfft.py:337")
+    check_dft("dft_leading (K8)", pfft.dft_leading_cuda, pfft.dft_leading_plain,
+              lambda z: fft(z, dim=0), *spec, (0,), "merfish3d_tpu/ops/pfft.py:469")
+
+
 def camera_case(fixed, moving) -> dict:
     import torch
 
@@ -1138,15 +1274,17 @@ def main() -> int:
             counts[name] = 0
     hermetic = [(*key, False, pin) for key, pin in HERMETIC_PINS.items()]
     hermetic += [(*key, True, pin) for key, pin in CNN_PINS.items()]
-    for dist_name, decon, cnn, pin in hermetic:
+    hermetic_f1 = {}
+    for dist_name, step, decon, cnn, pin in hermetic:
         t0 = time.perf_counter()
-        res = hermetic_case(dist_name, decon, cnn)
-        case = f"{dist_name}-0.315um-{'decon' if decon else 'nodecon'}{'-cnn' if cnn else ''}"
+        res = hermetic_case(dist_name, step, decon, cnn)
+        case = f"{dist_name}-{step}um-{'decon' if decon else 'nodecon'}{'-cnn' if cnn else ''}"
+        hermetic_f1[case] = {"f1": res["f1"], "pin": pin}
         log(f"hermetic {case} on CUDA: F1 {res['f1']:.4f} "
             f"(pin {pin:.4f}, tp {res['true_positives']} fp {res['false_positives']} "
             f"fn {res['false_negatives']}), {time.perf_counter() - t0:.1f} s")
         require(abs(res["f1"] - pin) <= F1_TOLERANCE, f"{case} F1 off its pin")
-        require(not cnn or res["f1"] >= HERMETIC_PINS[(dist_name, decon)] - F1_TOLERANCE,
+        require(not cnn or res["f1"] >= HERMETIC_PINS[(dist_name, step, decon)] - F1_TOLERANCE,
                 f"{case} F1 below the DoG pin")
     productions = {}
     for key, decon, cnn in (("nodecon", False, False), ("decon", True, False), ("nodecon-cnn", False, True)):
@@ -1184,6 +1322,15 @@ def main() -> int:
         require(prod["f1"]["f1"] >= 0.5, "production F1 below 0.5")
     require(len(productions["decon"]["decon_iterations_per_bit"]) == raw.bits.shape[1],
             "not every readout bit was deconvolved")
+    fid = fiducial_decon_case(raw)
+    torch.cuda.empty_cache()
+    log(f"production geometry, fiducial rounds with RLGC ({PRODUCTION_DECON_ITERS} iterations) on {card}: "
+        f"fiducial registration of 7 moving rounds {fid['fiducial_registration_s']:.3f} s, of which the "
+        f"moving rounds' solves {fid['moving_decon_s']:.3f} s (iterations {fid['moving_decon_iterations']}); "
+        f"max round-shift residual {fid['max_round_shift_residual_px']:.3f} px (per round, z y x: "
+        f"{fid['round_shift_residual_px']}); peak device memory {fid['peak_device_bytes'] / 2**30:.2f} GiB")
+    require(fid["max_round_shift_residual_px"] <= SHIFT_TOL_PX,
+            "a production round shift was not recovered within 0.3 px with fiducial decon")
     with tempfile.TemporaryDirectory() as tmp:
         c32 = c32_tile_case(raw, Path(tmp))
     torch.cuda.empty_cache()
@@ -1237,10 +1384,31 @@ def main() -> int:
             and twice["max_rel_delta"] <= SOLVE_MAX_RTOL and twice["l2_rel_delta"] <= SOLVE_L2_RTOL,
             "the kernel and plain solves disagree")
 
+    # one camera frame through the kernels and through the plain versions
+    frame = torch.as_tensor(cam_fixed, device="cuda").to(torch.float32)
+    del cam_fixed, cam_moving
+    readout_psf = production_psf(raw)
+    cam_solve = camera_frame_solve(frame, readout_psf)
+    ck, cp = cam_solve["kernels"], cam_solve["plain"]
+    log(f"camera frame (32, 2048, 2048) deconvolved in one tile (padded (48, 2176, 2176): K6, K7, K8) "
+        f"from seed 7 on {card}: iterations {ck['iterations']} (kernels, {ck['seconds']:.3f} s, peak "
+        f"{ck['peak_device_bytes'] / 2**30:.2f} GiB) and {cp['iterations']} (plain versions, "
+        f"{cp['seconds']:.3f} s, peak {cp['peak_device_bytes'] / 2**30:.2f} GiB); max |delta| / max |recon| "
+        f"{cam_solve['max_rel_delta']:.3e} (limit {CAMERA_SOLVE_MAX_RTOL}), ||delta|| / ||recon|| "
+        f"{cam_solve['l2_rel_delta']:.3e} (limit {CAMERA_SOLVE_L2_RTOL})")
+    require(ck["iterations"] == cp["iterations"] and cam_solve["max_rel_delta"] <= CAMERA_SOLVE_MAX_RTOL
+            and cam_solve["l2_rel_delta"] <= CAMERA_SOLVE_L2_RTOL,
+            "the camera frame's kernel and plain solves disagree")
+    torch.cuda.empty_cache()
+    check_camera_frame_dft(frame, readout_psf)
+    del frame
+    torch.cuda.empty_cache()
+
     for row in kernels:
         row["launches"] = launches[row["name"]]
-    summary = {"production": {}, "c32_tile": c32, "k11_layers": k11_shapes, "camera_pair": camera,
-               "solve_twice": twice}
+    summary = {"hermetic_f1": hermetic_f1, "production": {}, "fiducial_decon": fid, "c32_tile": c32,
+               "k11_layers": k11_shapes, "camera_pair": camera, "solve_twice": twice,
+               "camera_frame_solve": cam_solve, "dft_times": DFT_TIMES}
     for key, prod in productions.items():
         summary["production"][key] = {k: v for k, v in prod.items() if k != "f1"}
         summary["production"][key]["f1"] = prod["f1"]["f1"]

@@ -28,6 +28,7 @@ _PKG = Path(__file__).parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("decode.cu", "fused_decode.cu", "pfft.cu", "rlgc.cu", "conv2d.cu")
+HEADERS = ("fft128.cuh",)  # included by the sources; part of the library's hash
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -57,7 +58,7 @@ def find_nvcc() -> str:
 
 def _library_path() -> Path:
     digest = hashlib.sha256()
-    for name in SOURCES:
+    for name in (*SOURCES, *HEADERS):
         digest.update((SRC_DIR / name).read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libmerfish_kernels_{digest.hexdigest()[:12]}.so"
@@ -121,7 +122,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.dft_middle_f32.restype = i
     lib.dft_leading_f32.argtypes = [p, p, p, p, p, i, ll, p]
     lib.dft_leading_f32.restype = i
-    lib.dft_zx_f32.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+    lib.dft_zx_f32.argtypes = [p] * 8 + [i] * 6 + [p]
     lib.dft_zx_f32.restype = i
     lib.dft_mid_conv_f32.argtypes = [p] * 12 + [i, i, i, p]
     lib.dft_mid_conv_f32.restype = i

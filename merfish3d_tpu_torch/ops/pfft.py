@@ -8,7 +8,8 @@ Five kernels, hand-written CUDA in ``csrc/pfft.cu``:
 - K7 :func:`dft_middle` — DFT along axis 1 of a (z, n, x) pair,
 - K8 :func:`dft_leading` — dense DFT along axis 0 of a (n, y, x) pair,
 - K10 :func:`dft_zx` — DFT along axes 0 and 2 of a (z, y, x) pair in one
-  launch,
+  call (an x pass whose 128-point stage is a radix FFT, then a dense z
+  pass),
 - K9 :func:`dft_mid_conv` — forward y DFT, product with an OTF pair in
   the same scrambled order, inverse y DFT, in one launch (the middle pass
   of an RLGC convolution).
@@ -40,8 +41,6 @@ from .. import _build
 _LANE = 128
 _MAX_N1 = 24
 _ZX_TY = 8
-# shared memory a K10 block may use for one chunk of its (z, x) plane
-_ZX_SMEM_BUDGET = 200 * 1024
 
 # launches of each kernel since the last reset (chip_smoke reads them)
 launch_count = {
@@ -140,6 +139,27 @@ def _consts_ct(n: int, inverse: bool):
 
 
 @lru_cache(maxsize=None)
+def _consts_fft128(inverse: bool) -> np.ndarray:
+    """W128^j = exp(-+2πij/128), j < 128, complex64: the twiddles between
+    the 16- and 8-point factors of K10's 128-point FFT (``fft128.cuh``);
+    no scale (the inverse's 1/n is in the Cooley-Tukey twiddle)."""
+    sign = +1.0 if inverse else -1.0
+    return np.exp(sign * 2j * np.pi * np.arange(_LANE) / _LANE).astype(np.complex64)
+
+
+def zx_tables(nz: int, nx: int, inverse: bool) -> tuple[np.ndarray, ...]:
+    """The host tables K10 uploads for a (nz, ·, nx) volume: w1 (n1, n1)
+    and the Cooley-Tukey twiddle (n1, 128) of :func:`_consts_ct`, the
+    128-point FFT's twiddles (128,) and the dense z table, symmetric,
+    stored as (nz, nzp) with nzp = nz rounded up to a multiple of 8 and
+    zeros past nz (the z pass reads 8 outputs' entries as aligned pairs)."""
+    w1, tw, _ = _consts_ct(nx, inverse)
+    wz = np.zeros((nz, -(-nz // 8) * 8), np.complex64)
+    wz[:, :nz] = _consts_dense(nz, inverse)
+    return w1, tw, _consts_fft128(inverse), wz
+
+
+@lru_cache(maxsize=None)
 def _consts_dense(n: int, inverse: bool) -> np.ndarray:
     k = np.arange(n)
     sign = +1.0 if inverse else -1.0
@@ -152,12 +172,19 @@ def _consts_dense(n: int, inverse: bool) -> np.ndarray:
 _device_consts: dict = {}
 
 
-def _on_device(kind: str, n: int, inverse: bool, device) -> tuple[torch.Tensor, ...]:
-    """The constant tables as complex64 tensors on ``device`` (interleaved
-    (re, im) float pairs, as the kernels read them), uploaded once."""
+def _on_device(kind: str, n, inverse: bool, device) -> tuple[torch.Tensor, ...]:
+    """The constant tables of ``kind`` ("ct" or "dense" for a length n,
+    "zx" for n = (nz, nx)) as complex64 tensors on ``device``
+    (interleaved (re, im) float pairs, as the kernels read them), uploaded
+    once."""
     key = (kind, n, inverse, str(device))
     if key not in _device_consts:
-        tables = _consts_ct(n, inverse) if kind == "ct" else (_consts_dense(n, inverse),)
+        if kind == "ct":
+            tables = _consts_ct(n, inverse)
+        elif kind == "zx":
+            tables = zx_tables(*n, inverse)
+        else:
+            tables = (_consts_dense(n, inverse),)
         _device_consts[key] = tuple(
             torch.as_tensor(np.ascontiguousarray(t), device=device) for t in tables
         )
@@ -290,32 +317,20 @@ def dft_leading_cuda(xr, xi=None, *, inverse=False, real_output=False):
     return yr, yi
 
 
-def zx_chunks(nz: int, nx: int) -> tuple[int, int]:
-    """(z rows per x-pass chunk, columns per z-pass chunk) of a K10 block:
-    the largest that fit its shared-memory budget, so any plane that
-    :func:`zx_supported` admits runs in one launch."""
-    zc = max(1, min(nz, _ZX_SMEM_BUDGET // (nx * 8)))
-    sc = min(nx, max(32, (_ZX_SMEM_BUDGET // (nz * 8)) // 32 * 32))
-    return zc, sc
-
-
 def dft_zx_cuda(xr, xi=None, *, inverse=False, real_output=False):
-    """K10 on CUDA tensors; same contract as :func:`dft_zx`."""
+    """K10 on CUDA tensors; same contract as :func:`dft_zx`. One call is
+    two launches (x pass, z pass; inverse: z, then x), counted once."""
     _check_pair(xr, xi, 3, "dft_zx")
     nz, ny, nx = xr.shape
     if not (supported_dense_axis(nz) and supported_ct_axis(nx)):
         raise ValueError(f"dft_zx: shape {tuple(xr.shape)} needs z in 2..96 and x = n1*128")
-    if inverse and xi is None:
-        xi = torch.zeros_like(xr)
-    w1, tw, w2 = _on_device("ct", nx, bool(inverse), xr.device)
-    (wz,) = _on_device("dense", nz, bool(inverse), xr.device)
-    # the inverse's z pass writes a full complex intermediate, so its
-    # imaginary channel needs room even when only the real output is kept
+    w1, tw, w128, wz = _on_device("zx", (nz, nx), bool(inverse), xr.device)
+    # the inverse's intermediate (after its z pass) is complex: yi is its
+    # scratch when only the real output is kept
     yr, yi = _outputs(xr, False)
-    zc, sc = zx_chunks(nz, nx)
     status = _build.kernels().dft_zx_f32(
         xr.data_ptr(), _ptr(xi), yr.data_ptr(), yi.data_ptr(), w1.data_ptr(), tw.data_ptr(),
-        w2.data_ptr(), wz.data_ptr(), nz, ny, nx // _LANE, zc, sc, int(bool(inverse)),
+        w128.data_ptr(), wz.data_ptr(), nz, wz.shape[1], ny, nx // _LANE, int(bool(inverse)),
         int(bool(inverse and real_output)), _build.stream_handle(xr.device),
     )
     _launched(status, "dft_zx")

@@ -41,6 +41,15 @@ card (cuFFT), and on the host (pocketfft) — for 1, 3 and 10 iterations,
 and prints how far each pair of routes differs: the floor between two
 correct FP32 implementations of the solve. The host solves take minutes.
 
+    python3 profile_decode.py --camera-routes
+
+instead solves the smoke's camera frame ((32, 2048, 2048), padded to (48,
+2176, 2176), K6, K7 and K8 in every convolution) from one seed three
+ways — through the kernels, through their plain versions (cuFFT, float32)
+and through the plain versions with complex128 transforms — for 1 and 10
+iterations, and prints how far each pair differs: the floor of the
+camera-frame solve limits in ``chip_smoke.py``.
+
     python3 profile_decode.py --ufish
 
 instead runs the full-width c32 U-FISH predictor (seeded weights, the
@@ -56,6 +65,7 @@ profiler's table.
 from __future__ import annotations
 
 import collections
+import contextlib
 import sys
 import time
 
@@ -290,6 +300,58 @@ def solve_routes(raw) -> None:
                 f"||delta|| / ||recon|| {l2_rel:.3e}")
 
 
+@contextlib.contextmanager
+def f64_transforms():
+    """Every plain transform in complex128 (the solve itself stays float32):
+    a second plain route whose transforms round far less than either
+    float32 route's."""
+    import torch
+
+    from merfish3d_tpu_torch.ops import pfft
+
+    saved = pfft.axis_plain
+
+    def axis_plain_f64(xr, xi, axis, inverse, real_output):
+        xi = torch.zeros_like(xr, dtype=torch.float64) if xi is None else xi.double()
+        yr, yi = saved(xr.double(), xi, axis, inverse, real_output)
+        return yr.float(), None if yi is None else yi.float()
+
+    pfft.axis_plain = axis_plain_f64
+    try:
+        yield
+    finally:
+        pfft.axis_plain = saved
+
+
+def camera_routes(raw) -> None:
+    """The smoke's camera frame solved three ways from one seed: through
+    the kernels, through the plain versions (cuFFT, float32) and through
+    the plain versions with complex128 transforms, for 1 and 10
+    iterations: how far each pair differs."""
+    import torch
+
+    log = chip_smoke.log
+    t0 = time.perf_counter()
+    image = torch.as_tensor(chip_smoke.camera_pair()[0], device="cuda").to(torch.float32)
+    log(f"camera pair generator {time.perf_counter() - t0:.3f} s")
+    psf = chip_smoke.production_psf(raw)
+    for iters in (1, 10):
+        runs = {
+            "kernels": chip_smoke.camera_frame_route(image, psf, plain=False, max_iters=iters),
+            "plain": chip_smoke.camera_frame_route(image, psf, plain=True, max_iters=iters),
+            "plain, f64 transforms": chip_smoke.camera_frame_route(image, psf, plain=True, max_iters=iters,
+                                                                   context=f64_transforms),
+        }
+        log(f"camera frame, {iters} iteration(s): " + ", ".join(
+            f"{k} {v['iterations']} ({v['seconds']:.2f} s)" for k, v in runs.items()))
+        for a, b in (("kernels", "plain"), ("plain", "plain, f64 transforms"),
+                     ("kernels", "plain, f64 transforms")):
+            max_rel, l2_rel = chip_smoke.rel_delta(runs[a]["recon"], runs[b]["recon"])
+            log(f"  {a} vs {b}: max |delta| / max |recon| {max_rel:.3e}, ||delta|| / ||recon|| {l2_rel:.3e}")
+        del runs
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -310,6 +372,9 @@ def main() -> int:
         return 0
     if "--ufish" in sys.argv[1:]:
         profile_ufish(raw)
+        return 0
+    if "--camera-routes" in sys.argv[1:]:
+        camera_routes(raw)
         return 0
     profile_registration(raw)
     profile_decon(raw)

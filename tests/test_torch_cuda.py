@@ -165,9 +165,11 @@ _DFT_CASES = [
     ("dft_middle", (2, 3072, 128)),  # the largest slab, 192 KB of shared memory
     ("dft_leading", (96, 8, 136)),
     ("dft_leading", (5, 16, 128)),
-    ("dft_zx", (16, 24, 896)),  # the production crop's plane, in one chunk
-    ("dft_zx", (96, 8, 512)),  # a plane larger than shared memory: z and x chunks
-    ("dft_zx", (18, 8, 3072)),
+    ("dft_zx", (16, 24, 896)),  # the production crop's plane
+    ("dft_zx", (96, 8, 512)),  # planes larger than shared memory: the largest z
+    ("dft_zx", (18, 8, 3072)),  # ... and the largest x (n1 = 24)
+    ("dft_zx", (32, 8, 1152)),  # the RLGC plane (n1 = 9)
+    ("dft_zx", (27, 8, 896)),  # a ragged z: a partial 8-output chunk of the z pass
 ]
 
 
@@ -182,10 +184,11 @@ def test_dft_kernels_match_plain(cuda, name, shape, complex_in):
     fk, fp = kernel(xr, xi), plain(xr, xi)
     torch.cuda.synchronize()
     _assert_pair_close(fk, fp, max(fp[0].abs().max().item(), fp[1].abs().max().item()))
-    for real_output in (False, True):
+    for real_output in (False, True):  # real_output: the inverse returns no imaginary plane
         ik = kernel(*fp, inverse=True, real_output=real_output)
         ip = plain(*fp, inverse=True, real_output=real_output)
         torch.cuda.synchronize()
+        assert (ik[1] is None) == real_output
         _assert_pair_close(ik, ip, xr.abs().max().item())
         assert (ik[0] - xr).abs().max().item() <= 3e-5 * xr.abs().max().item()
 

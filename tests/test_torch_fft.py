@@ -172,3 +172,107 @@ def test_roundtrip_and_natural_pairs():
     _close(got[1], want.imag, np.abs(want).max())
     back = tfft.ifftn_pair(*got)
     np.testing.assert_allclose(back[0].numpy(), xr, atol=2e-5 * np.abs(xr).max())
+
+
+# --------------------------------------- K10's radix factorization, modelled
+# A numpy model of csrc/pfft.cu's dft_zx_x / dft_zx_z and csrc/fft128.cuh,
+# index for index and driven by the tables the wrapper uploads
+# (tpfft.zx_tables), so an index or table error in the design shows on CPU.
+# Its butterfly constants are the header's.
+_R2, _C8, _S8 = np.float32(0.70710678118654752), np.float32(0.92387953251128676), \
+    np.float32(0.38268343236508977)
+
+
+def _rot(a, c, s, inv):
+    """a * exp(-+iθ) given (cos θ, sin θ): fft128::rot."""
+    return a * complex(c, s if inv else -s)
+
+
+def _mul_i(a, inv):
+    return a * (1j if inv else -1j)
+
+
+def _dft4(a0, a1, a2, a3, inv):
+    s02, d02 = a0 + a2, a0 - a2
+    s13, d13 = a1 + a3, _mul_i(a1 - a3, inv)
+    return s02 + s13, d02 + d13, s02 - s13, d02 - d13
+
+
+def _dft8(v, inv):
+    """fft128::dft8 on v[..., 0:8]: n = 2a + e, k = c + 4d."""
+    u = _dft4(v[..., 0], v[..., 2], v[..., 4], v[..., 6], inv)
+    w = list(_dft4(v[..., 1], v[..., 3], v[..., 5], v[..., 7], inv))
+    w[1] = _rot(w[1], _R2, _R2, inv)
+    w[2] = _mul_i(w[2], inv)
+    w[3] = _rot(w[3], -_R2, _R2, inv)
+    return np.stack([u[c] + w[c] for c in range(4)] + [u[c] - w[c] for c in range(4)], axis=-1)
+
+
+def _dft16(v, inv):
+    """fft128::dft16 on v[..., 0:16]: n = 4a + b, k = c + 4d."""
+    u = np.empty_like(v)
+    for b in range(4):
+        u[..., b::4] = np.stack(_dft4(*(v[..., 4 * a + b] for a in range(4)), inv), axis=-1)
+    # U[b][c] at u[4c + b], times W16^(bc)
+    consts = {1: (_C8, _S8), 2: (_R2, _R2), 3: (_S8, _C8), 6: (-_R2, _R2), 9: (-_C8, -_S8)}
+    for b in range(1, 4):
+        for c in range(1, 4):
+            e = b * c
+            u[..., 4 * c + b] = _mul_i(u[..., 4 * c + b], inv) if e == 4 else \
+                _rot(u[..., 4 * c + b], *consts[e], inv)
+    out = np.empty_like(v)
+    for c in range(4):
+        y = _dft4(*(u[..., 4 * c + b] for b in range(4)), inv)
+        for d in range(4):
+            out[..., c + 4 * d] = y[d]
+    return out
+
+
+def _fft128_model(C, w128, inv):
+    """fft128::transform on C[..., 0:128]: thread b holds x[8a + b]; the
+    16-point DFT over a, the twiddle w128[b*k1], then for each k1 the
+    8-point DFT over b gives X[k1 + 16*k2]."""
+    v = C.reshape(*C.shape[:-1], 16, 8).swapaxes(-1, -2)  # [..., b, a]
+    y = _dft16(v, inv)  # [..., b, k1]
+    b, k1 = np.meshgrid(np.arange(8), np.arange(16), indexing="ij")
+    y = y * w128[b * k1].astype(np.complex128)
+    x = _dft8(y.swapaxes(-1, -2), inv)  # [..., k1, k2]
+    return x.swapaxes(-1, -2).reshape(C.shape)  # position k1 + 16*k2
+
+
+def _dft_zx_model(x, inverse):
+    """K10 as the two launches run it: forward x pass (stage 1 with w1 and
+    the twiddle, the 128-point FFTs) then the dense z pass, which reads
+    the symmetric z table by rows (W[j][k] for output k); the inverse z
+    pass, then the FFTs, the twiddle and the n1-point synthesis."""
+    nz, ny, n = x.shape
+    n1 = n // 128
+    w1, tw, w128, wz = (t.astype(np.complex128) if t.ndim > 1 else t
+                        for t in tpfft.zx_tables(nz, n, inverse))
+    assert wz.shape == (nz, -(-nz // 8) * 8) and not wz[:, nz:].any()
+    if not inverse:
+        c = np.einsum("zypq,kp->zykq", x.reshape(nz, ny, n1, 128), w1) * tw
+        y = _fft128_model(c, w128, False).reshape(nz, ny, n)
+        return np.einsum("jk,jyx->kyx", wz[:, :nz], y)
+    z = np.einsum("jk,jyx->kyx", wz[:, :nz], x).reshape(nz, ny, n1, 128)
+    e = _fft128_model(z, w128, True) * tw
+    return np.einsum("zykq,kp->zypq", e, w1).reshape(nz, ny, n)
+
+
+@pytest.mark.parametrize("nz", [16, 27, 32])
+@pytest.mark.parametrize("n1", [2, 7, 9, 24])
+def test_k10_factorization_model_matches_plain(n1, nz):
+    """The model, forward (scrambled x out) and inverse (natural out), at
+    the plain dft_zx within 1e-5 x max|X|: the radix FFT is held to a
+    tighter limit than the card's 3e-5."""
+    xr, xi = _pair((nz, 2, 128 * n1), seed=n1 * 100 + nz)
+    want = tpfft.dft_zx_plain(_t(xr), _t(xi))
+    got = _dft_zx_model(xr.astype(np.float64) + 1j * xi, False)
+    scale = max(float(want[0].abs().max()), float(want[1].abs().max()))
+    np.testing.assert_allclose(got.real, want[0].numpy(), rtol=0, atol=1e-5 * scale)
+    np.testing.assert_allclose(got.imag, want[1].numpy(), rtol=0, atol=1e-5 * scale)
+    back = tpfft.dft_zx_plain(_t(xr), _t(xi), inverse=True)
+    got = _dft_zx_model(xr.astype(np.float64) + 1j * xi, True)
+    scale = max(float(back[0].abs().max()), float(back[1].abs().max()))
+    np.testing.assert_allclose(got.real, back[0].numpy(), rtol=0, atol=1e-5 * scale)
+    np.testing.assert_allclose(got.imag, back[1].numpy(), rtol=0, atol=1e-5 * scale)

@@ -6,17 +6,20 @@ the card's kernel is held to) is compared with the Pallas kernel it
 replaces in interpret mode. Iterations are held to the reference exactly
 by injecting the reference's own binomial splits through ``split_fn``;
 whole solves, whose splits come from torch's generator, are held to it
-statistically. The hermetic decon cases run the port's own
-``DataRegistration`` and are held to the reference's F1 pins.
+statistically (the eight-seed comparison is in test_torch_rlgc_solves.py).
+The hermetic decon case runs the port's own ``DataRegistration`` and is
+held to the reference's F1 pin (cells: test_torch_decon_pin_cells.py).
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import scipy.signal
 import torch
 from jax.experimental.pallas import tpu as pltpu
+from torch_port_common import (
+    DECON_PINS, F1_TOLERANCE, gaussian_psf, jax_solve, observed_counts, port_chain, solves_agree,
+)
 
 from merfish3d_tpu.ops import fftutils as jfft
 from merfish3d_tpu.ops import mmfft as jmm
@@ -29,30 +32,10 @@ from merfish3d_tpu_torch.ops import rlgc as trlgc
 from merfish3d_tpu_torch.ops import rlgc_kernels as trk
 
 DFT_TOL = 3e-5  # tests/test_pfft.py: f32 DFT sums in another order, x max|y|
-DECON_PINS = {"cells": 0.9655, "uniform": 0.9573}  # tests/test_f1_matrix.py
-F1_TOLERANCE = 0.02
 
 
 def _t(a):
     return torch.as_tensor(np.asarray(a))
-
-
-def _gaussian_psf(shape=(7, 11, 11), sigma=(1.2, 1.8, 1.8)):
-    zz, yy, xx = np.meshgrid(*[np.arange(s) - s // 2 for s in shape], indexing="ij")
-    psf = np.exp(-0.5 * ((zz / sigma[0]) ** 2 + (yy / sigma[1]) ** 2 + (xx / sigma[2]) ** 2))
-    return (psf / psf.sum()).astype(np.float32)
-
-
-def _observed(shape=(12, 48, 48), n=6, seed=0, background=5.0):
-    """Poisson counts of point sources blurred by _gaussian_psf (the
-    reference's own RLGC test geometry)."""
-    rng = np.random.default_rng(seed)
-    truth = np.zeros(shape, np.float32)
-    for _ in range(n):
-        z, y, x = [rng.integers(3, s - 3) for s in shape]
-        truth[z, y, x] = rng.uniform(2000, 8000)
-    blurred = scipy.signal.fftconvolve(truth, _gaussian_psf(), mode="same")
-    return rng.poisson(np.clip(blurred, 0, None) + background).astype(np.float32)
 
 
 def reference_splits(observed: torch.Tensor, seed: int, iteration: int) -> torch.Tensor:
@@ -126,7 +109,7 @@ def test_padding_helpers_match_reference(shape, pad_width):
     )
     np.testing.assert_array_equal(tfft.observed_region_mask(padded.shape, pad_width).numpy(),
                                   jfft.observed_region_mask(tuple(padded.shape), pad_width))
-    psf = _gaussian_psf((5, 7, 3))
+    psf = gaussian_psf((5, 7, 3))
     for image_shape in ((8, 16, 12), (9, 15, 11)):
         np.testing.assert_allclose(tfft.pad_psf(psf, image_shape),
                                    np.asarray(jfft.pad_psf(jnp.asarray(psf), image_shape)),
@@ -214,7 +197,7 @@ def test_fft_conv_matches_reference(tpu_dispatch, shape):
     reference's TPU dispatch within the DFT tolerance of the output."""
     rng = np.random.default_rng(6)
     xr, xi = (rng.standard_normal(shape).astype(np.float32) for _ in range(2))
-    psf = tfft.pad_psf(_gaussian_psf((5, 7, 7)), shape)
+    psf = tfft.pad_psf(gaussian_psf((5, 7, 7)), shape)
     otf_t = tfft.fftn_spec(_t(psf))
     otf_j = jfft.fftn_spec(jnp.asarray(psf))
     if shape == (8, 256, 384):
@@ -236,8 +219,8 @@ def test_iterations_with_reference_splits_match_jax(iters):
     plain path against JAX rlgc on CPU, within 1e-4 x max (torch.fft and
     XLA's FFT sum in other orders; the iterations multiply their
     rounding)."""
-    obs = _observed()
-    psf = _gaussian_psf()
+    obs = observed_counts()
+    psf = gaussian_psf()
     want = jrlgc.rlgc(obs, psf, seed=4, max_iters=iters)
     got = trlgc.rlgc(obs, psf, seed=4, max_iters=iters, device="cpu", split_fn=reference_splits)
     assert got.shape == obs.shape and got.dtype == np.float32
@@ -249,8 +232,8 @@ def test_diagnostics_with_reference_splits_match_jax(caplog):
     """rlgc_diagnostics, its own stopping rule and log records included."""
     import logging
 
-    obs = _observed((8, 32, 32), n=4, seed=1)
-    psf = _gaussian_psf((5, 7, 7))
+    obs = observed_counts((8, 32, 32), n=4, seed=1)
+    psf = gaussian_psf((5, 7, 7))
     want = jrlgc.rlgc_diagnostics(obs, psf, seed=9, max_iters=6)
     with caplog.at_level(logging.INFO, logger="merfish3d_tpu_torch.rlgc"):
         got = trlgc.rlgc_diagnostics(obs, psf, seed=9, max_iters=6, device="cpu",
@@ -260,50 +243,14 @@ def test_diagnostics_with_reference_splits_match_jax(caplog):
 
 
 # ------------------------------------------------ (f) solves, statistically
-def _jax_solve(obs, psf, seed, max_iters):
-    """JAX _rlgc_core on CPU: (unpadded recon, iterations)."""
-    pad = jrlgc.linear_fft_pad_width(obs.shape, psf.shape)
-    padded = jrlgc.pad_symmetric(jnp.asarray(obs), pad)
-    recon, n = jrlgc._rlgc_core(padded, jnp.asarray(psf), jax.random.PRNGKey(seed), pad_width=pad,
-                                max_iters=max_iters)
-    return np.asarray(jrlgc.remove_padding_zyx(recon, pad)), int(n)
-
-
-def _solves_agree(got, want):
-    """Solves of the same data under different random splits stop at
-    different iterations (5 to 11 here, in either package), so each pair
-    is held loosely — correlation > 0.95, total energy within 1 % — and
-    the stopping rule by the mean iteration count over the solves, within
-    1.5."""
-    for (g, ng), (w, nw) in zip(got, want):
-        assert np.corrcoef(g.ravel(), w.ravel())[0, 1] > 0.95
-        np.testing.assert_allclose(g.sum(), w.sum(), rtol=0.01)
-    assert abs(np.mean([n for _, n in got]) - np.mean([n for _, n in want])) <= 1.5
-
-
-def test_rlgc_statistically_matches_jax():
-    obs = _observed(seed=2, background=2.0)
-    psf = _gaussian_psf()
-    pad = tfft.linear_fft_pad_width(obs.shape, psf.shape)
-    padded = tfft.pad_symmetric(_t(obs), pad)
-    got, want = [], []
-    for seed in range(3, 11):
-        recon, n = trlgc._rlgc_core(padded, psf, seed, pad_width=pad, max_iters=30)
-        got.append((tfft.remove_padding_zyx(recon, pad).numpy(), n))
-        want.append(_jax_solve(obs, psf, seed, 30))
-    _solves_agree(got, want)
-    # the entry point is this solve, and a seed repeats it exactly
-    np.testing.assert_array_equal(trlgc.rlgc(obs, psf, seed=3, max_iters=30, device="cpu"), got[0][0])
-
-
 def test_rlgc_batch_statistically_matches_jax():
-    obs = np.stack([_observed(seed=s) for s in range(3, 9)])
-    psf = _gaussian_psf()
+    obs = np.stack([observed_counts(seed=s) for s in range(3, 9)])
+    psf = gaussian_psf()
     want = jrlgc.rlgc_batch(obs, psf, seed=10, max_iters=15)
     got, iters = trlgc.rlgc_batch(obs, psf, seed=10, max_iters=15, device="cpu", return_iters=True)
     assert got.shape == obs.shape and got.dtype == np.float32
-    _solves_agree(list(zip(got, iters)),
-                  [(want[i], _jax_solve(obs[i], psf, 10 + i, 15)[1]) for i in range(len(obs))])
+    solves_agree(list(zip(got, iters)),
+                  [(want[i], jax_solve(obs[i], psf, 10 + i, 15)[1]) for i in range(len(obs))])
 
 
 # ------------------------------------------------------ (g) pairing
@@ -312,8 +259,8 @@ def test_paired_solve_matches_unpaired():
     the same generators, odd batch included: the same iteration counts,
     recons within the reference's own pair tolerance (rtol 1e-4, atol
     1e-3: the packed convolution rounds differently)."""
-    obs = np.stack([_observed(seed=s, background=5.0) for s in range(3)])
-    psf = _gaussian_psf()
+    obs = np.stack([observed_counts(seed=s, background=5.0) for s in range(3)])
+    psf = gaussian_psf()
     kw = dict(seed=7, max_iters=12, device="cpu", return_iters=True)
     paired, it_p = trlgc.rlgc_batch(obs, psf, pair=True, **kw)
     single, it_s = trlgc.rlgc_batch(obs, psf, pair=False, **kw)
@@ -326,8 +273,8 @@ def test_paired_solve_matches_unpaired():
 
 # ------------------------------------------------ (h) tiling and budgets
 def test_chunked_rlgc_covers_image():
-    obs = _observed((8, 64, 64), n=10, seed=4)
-    psf = _gaussian_psf((5, 7, 7))
+    obs = observed_counts((8, 64, 64), n=10, seed=4)
+    psf = gaussian_psf((5, 7, 7))
     whole = trlgc.rlgc(obs, psf, seed=5, max_iters=10, device="cpu")
     tiled = trlgc.chunked_rlgc(obs, psf, crop_yx=32, seed=5, max_iters=10, device="cpu")
     assert tiled.shape == obs.shape and np.all(np.isfinite(tiled))
@@ -378,31 +325,13 @@ def test_binomial_split_distribution():
 
 
 # ---------------------------------------------- (i) the hermetic decon cases
-@pytest.mark.parametrize("distribution", ["cells", "uniform"])
+@pytest.mark.parametrize("distribution", ["uniform"])  # cells: test_torch_decon_pin_cells.py
 def test_hermetic_decon_f1_meets_pin(distribution):
     """The port's own chain with RLGC on the readout bits (12 iterations,
     no fiducial decon, as tests/f1_matrix_common.py runs the decon cases)
     on CPU: F1 within ±0.02 of the reference's pin."""
-    from merfish3d_tpu_torch.cli.simulation.calculate_f1 import match_spots_f1
-    from merfish3d_tpu_torch.cli.simulation.convert_simulation_to_experiment import (
-        generate_raw_experiment,
-    )
-    from merfish3d_tpu_torch.cli.simulation.convert_to_datastore import convert_data
-    from merfish3d_tpu_torch.cli.simulation.pixeldecode import decode_pixels
-    from merfish3d_tpu_torch.pipeline.registration import DataRegistration
-
-    raw = generate_raw_experiment(
-        shape=(12, 96, 96), n_spots=170 if distribution == "uniform" else 60, n_genes=20,
-        n_blanks=4, seed=11, voxel_size_zyx_um=(0.315, 0.098, 0.098), distribution=distribution,
-        axial_sigma_um=0.44,
-    )
-    store = convert_data(raw)
-    DataRegistration(store, device="cpu", decon_fiducial=False, decon_readout=True,
-                     decon_max_iters=12).register_all_tiles()
+    store, f1 = port_chain(distribution, True)
     assert not np.array_equal(store.registered[(0, 0)], store.corrected[(0, 0)])
-    table = decode_pixels(store, device="cpu", minimum_pixels=4, magnitude_threshold=(0.9, 10.0),
-                          lowpass_sigma=(3.0, 1.0, 1.0), num_tiles=1, num_iterations=2)
-    f1 = match_spots_f1(table, raw.ground_truth, radius_um=1.0)["f1"]
     assert abs(f1 - DECON_PINS[distribution]) <= F1_TOLERANCE, f1
 
 

@@ -5,8 +5,10 @@ K11's plain version (what the port runs on a CPU tensor, and what the
 card's kernel is held to) is compared with the Pallas kernel it replaces
 in interpret mode, as tests/test_conv2d.py runs it; the port's U-Net with
 the reference's ``_FastUNet`` (the same folded formulation) and its Flax
-apply; the predictor, the ONNX loader and the registration stage with the
-reference's, on the repo's trained c8 checkpoint and on seeded c32 weights.
+apply; the predictor and the ONNX loader with the reference's, on the
+repo's trained c8 checkpoint and on seeded c32 weights. The registration
+stage with the CNN and its F1 pins: test_torch_cnn_uniform.py and
+test_torch_cnn_decon.py.
 
 Tolerances. f32: 2e-5 x max|ref| (tests/test_conv2d.py), the sums run in
 another order. bf16: the operands are the same bf16 values and every sum
@@ -26,9 +28,6 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
-from f1_matrix_common import MatrixCase
-from torch_port_common import reference_state
-
 from merfish3d_tpu.models import ufish as jufish
 from merfish3d_tpu.models import ufish_onnx as jonnx
 from merfish3d_tpu.ops.conv2d import conv2d_lanepack, supported
@@ -38,9 +37,6 @@ from merfish3d_tpu_torch.models import ufish_onnx as tonnx
 from merfish3d_tpu_torch.ops.conv2d import conv2d_same, conv2d_same_plain, same_pads
 
 CKPT = Path(__file__).parent / "data" / "ufish_synthetic_c8.pkl"
-CNN_PINS = {"cells": 0.9744, "uniform": 0.9666}  # tests/test_f1_matrix.py EXPECTED_F1_CNN
-DOG_PINS = {"cells": 0.9655, "uniform": 0.9480}  # the same cases with the DoG predictor
-F1_TOLERANCE = 0.02
 
 
 def _variables():
@@ -317,57 +313,3 @@ def test_every_alias_resolves(tmp_path, monkeypatch):
         assert pred.kind == "cnn" and pred.model_name == alias
         assert (pred.net.base_features, pred.net.depths, pred.net.up_mode) == (4, (1, 2, 4), "convtranspose")
     assert tufish.resolve_checkpoint("no-such-model") is None
-
-
-# ------------------------------------------------------ (e) the slice
-@pytest.fixture(scope="module")
-def reference_cnn(tmp_path_factory):
-    """The reference chain on uniform-0.315um-nodecon with the c8 CNN."""
-    return reference_state(tmp_path_factory.mktemp("reference-cnn"), MatrixCase("uniform", 0.315, False),
-                           ufish_checkpoint=CKPT)
-
-
-def _port_chain(distribution: str, decon: bool):
-    from merfish3d_tpu_torch.cli.simulation.calculate_f1 import match_spots_f1
-    from merfish3d_tpu_torch.cli.simulation.convert_simulation_to_experiment import (
-        generate_raw_experiment,
-    )
-    from merfish3d_tpu_torch.cli.simulation.convert_to_datastore import convert_data
-    from merfish3d_tpu_torch.cli.simulation.pixeldecode import decode_pixels
-    from merfish3d_tpu_torch.pipeline.registration import DataRegistration
-
-    raw = generate_raw_experiment(
-        shape=(12, 96, 96), n_spots=170 if distribution == "uniform" else 60, n_genes=20, n_blanks=4,
-        seed=11, voxel_size_zyx_um=(0.315, 0.098, 0.098), distribution=distribution, axial_sigma_um=0.44,
-    )
-    store = convert_data(raw)
-    reg = DataRegistration(store, device="cpu", decon_fiducial=False, decon_readout=decon,
-                           decon_max_iters=12, ufish_model="synthetic-cnn", ufish_checkpoint=CKPT)
-    assert reg._predictor.kind == "cnn"
-    reg.register_all_tiles()
-    table = decode_pixels(store, device="cpu", minimum_pixels=4, magnitude_threshold=(0.9, 10.0),
-                          lowpass_sigma=(3.0, 1.0, 1.0), num_tiles=1, num_iterations=2)
-    return store, match_spots_f1(table, raw.ground_truth, radius_um=1.0)["f1"]
-
-
-def test_cnn_slice_uniform_matches_reference(reference_cnn):
-    """The port's chain with the c8 CNN meets the reference's CNN pin; its
-    u8 probability maps match the reference datastore's: at most 1 % of
-    the voxels more than one count apart (the reference's default
-    predictor runs BatchNorm in bf16, see
-    test_predictor_matches_reference)."""
-    store, f1 = _port_chain("uniform", False)
-    assert abs(f1 - CNN_PINS["uniform"]) <= F1_TOLERANCE and f1 >= DOG_PINS["uniform"] - F1_TOLERANCE, f1
-    assert abs(reference_cnn["f1"]["f1"] - CNN_PINS["uniform"]) <= F1_TOLERANCE
-    got = np.stack([store.feature_predictor[(0, b)] for b in range(16)])
-    want = reference_cnn["probability_u8"]
-    assert got.dtype == want.dtype == np.uint8 and got.shape == want.shape
-    far = np.abs(got.astype(np.int16) - want.astype(np.int16)) > 1
-    assert far.mean() <= 0.01, far.mean()
-
-
-def test_cnn_slice_cells_decon_meets_pin():
-    """cells-0.315um-decon with RLGC on the readout bits and the c8 CNN."""
-    store, f1 = _port_chain("cells", True)
-    assert abs(f1 - CNN_PINS["cells"]) <= F1_TOLERANCE and f1 >= DOG_PINS["cells"] - F1_TOLERANCE, f1
-    assert not np.array_equal(store.registered[(0, 0)], store.corrected[(0, 0)])

@@ -9,15 +9,31 @@ reference's hermetic chain and reads what its datastore holds;
 
 from __future__ import annotations
 
+import os
 from pathlib import Path
 
 import numpy as np
 import pandas as pd
+import torch
 
 from f1_matrix_common import MatrixCase, run_matrix_case
 
+# Under pytest-xdist each worker is a process whose torch intra-op pool
+# defaults to one thread per core, so six workers on eight cores spin
+# against each other in every parallel region: a hermetic decon case took
+# 721 s beside five other port tests and 9 s alone. Every worker imports
+# this module while it collects, so the cores are shared out here.
+_XDIST_WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+if _XDIST_WORKERS > 1:
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // _XDIST_WORKERS))
+
 SLICE_CASE = MatrixCase("uniform", 0.315, False)  # uniform-0.315um-nodecon
 SLICE_PIN = 0.9480  # tests/test_f1_matrix.py EXPECTED_F1
+F1_TOLERANCE = 0.02
+DECON_PINS = {"cells": 0.9655, "uniform": 0.9573}  # tests/test_f1_matrix.py
+CNN_PINS = {"cells": 0.9744, "uniform": 0.9666}  # tests/test_f1_matrix.py EXPECTED_F1_CNN
+DOG_PINS = {"cells": 0.9655, "uniform": 0.9480}  # the CNN cases with the DoG predictor
+CNN_CHECKPOINT = Path(__file__).parent / "data" / "ufish_synthetic_c8.pkl"
 
 
 def mhd4_codebook(words: int = 24, bits: int = 16, seed: int = 0) -> np.ndarray:
@@ -143,3 +159,80 @@ def match_rows(ref: dict, port: dict, tol_um: float = 0.01) -> float:
             used[cand[j]] = True
             matched += 1
     return matched / n_ref
+
+
+# ------------------------------------------------------------ RLGC solves
+def gaussian_psf(shape=(7, 11, 11), sigma=(1.2, 1.8, 1.8)) -> np.ndarray:
+    zz, yy, xx = np.meshgrid(*[np.arange(s) - s // 2 for s in shape], indexing="ij")
+    psf = np.exp(-0.5 * ((zz / sigma[0]) ** 2 + (yy / sigma[1]) ** 2 + (xx / sigma[2]) ** 2))
+    return (psf / psf.sum()).astype(np.float32)
+
+
+def observed_counts(shape=(12, 48, 48), n=6, seed=0, background=5.0) -> np.ndarray:
+    """Poisson counts of point sources blurred by gaussian_psf (the
+    reference's own RLGC test geometry)."""
+    import scipy.signal
+
+    rng = np.random.default_rng(seed)
+    truth = np.zeros(shape, np.float32)
+    for _ in range(n):
+        z, y, x = [rng.integers(3, s - 3) for s in shape]
+        truth[z, y, x] = rng.uniform(2000, 8000)
+    blurred = scipy.signal.fftconvolve(truth, gaussian_psf(), mode="same")
+    return rng.poisson(np.clip(blurred, 0, None) + background).astype(np.float32)
+
+
+def jax_solve(obs, psf, seed, max_iters):
+    """JAX _rlgc_core on CPU: (unpadded recon, iterations)."""
+    import jax
+    import jax.numpy as jnp
+
+    from merfish3d_tpu.ops import rlgc as jrlgc
+
+    pad = jrlgc.linear_fft_pad_width(obs.shape, psf.shape)
+    padded = jrlgc.pad_symmetric(jnp.asarray(obs), pad)
+    recon, n = jrlgc._rlgc_core(padded, jnp.asarray(psf), jax.random.PRNGKey(seed), pad_width=pad,
+                                max_iters=max_iters)
+    return np.asarray(jrlgc.remove_padding_zyx(recon, pad)), int(n)
+
+
+def solves_agree(got, want) -> None:
+    """Solves of the same data under different random splits stop at
+    different iterations (5 to 11 here, in either package), so each pair
+    is held loosely — correlation > 0.95, total energy within 1 % — and
+    the stopping rule by the mean iteration count over the solves, within
+    1.5."""
+    for (g, ng), (w, nw) in zip(got, want):
+        assert np.corrcoef(g.ravel(), w.ravel())[0, 1] > 0.95
+        np.testing.assert_allclose(g.sum(), w.sum(), rtol=0.01)
+    assert abs(np.mean([n for _, n in got]) - np.mean([n for _, n in want])) <= 1.5
+
+
+# ------------------------------------------------------- the port's chains
+def port_chain(distribution: str, decon: bool, cnn: bool = False):
+    """The port's own chain on the 0.315 µm hermetic case on CPU (the port's
+    generator, seed 11; RLGC on the readout bits for 12 iterations with
+    ``decon``, no fiducial decon, as tests/f1_matrix_common.py runs it;
+    with ``cnn`` the repo's trained c8 U-FISH checkpoint predicts the spot
+    probabilities): (store, F1)."""
+    from merfish3d_tpu_torch.cli.simulation.calculate_f1 import match_spots_f1
+    from merfish3d_tpu_torch.cli.simulation.convert_simulation_to_experiment import (
+        generate_raw_experiment,
+    )
+    from merfish3d_tpu_torch.cli.simulation.convert_to_datastore import convert_data
+    from merfish3d_tpu_torch.cli.simulation.pixeldecode import decode_pixels
+    from merfish3d_tpu_torch.pipeline.registration import DataRegistration
+
+    raw = generate_raw_experiment(
+        shape=(12, 96, 96), n_spots=170 if distribution == "uniform" else 60, n_genes=20, n_blanks=4,
+        seed=11, voxel_size_zyx_um=(0.315, 0.098, 0.098), distribution=distribution, axial_sigma_um=0.44,
+    )
+    store = convert_data(raw)
+    options = dict(ufish_model="synthetic-cnn", ufish_checkpoint=CNN_CHECKPOINT) if cnn else {}
+    reg = DataRegistration(store, device="cpu", decon_fiducial=False, decon_readout=decon,
+                           decon_max_iters=12, **options)
+    assert not cnn or reg._predictor.kind == "cnn"
+    reg.register_all_tiles()
+    table = decode_pixels(store, device="cpu", minimum_pixels=4, magnitude_threshold=(0.9, 10.0),
+                          lowpass_sigma=(3.0, 1.0, 1.0), num_tiles=1, num_iterations=2)
+    return store, match_spots_f1(table, raw.ground_truth, radius_um=1.0)["f1"]
