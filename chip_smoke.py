@@ -20,7 +20,9 @@ Run from the root of a checkout. Phases, each raising on failure:
    computing the same function; K11 at each distinct convolution of one
    8-plane batch of the production tile through a full-width c32
    ConvTranspose U-FISH network (seeded weights), on the activations that
-   batch gives each layer;
+   batch gives each layer, with the weights packed as the network holds
+   them: each layer's route (the tensor-core kernel for every bf16 layer),
+   TFLOP/s and the batch's sum;
 4. the twelve hermetic DoG F1 cases of the standard and exhaustive
    matrices ({uniform, cells} x {0.315, 1.0, 1.5 um axial} x {no-decon,
    decon}: fiducial registration + decode, with RLGC on the readout bits
@@ -692,7 +694,11 @@ def check_conv_kernel(raw, workdir: Path) -> tuple[dict, list[dict]]:
     for key, (x, wt, b, _) in captured.items():
         n, h, w, kh, kw, cin, co, act = key
         what = f"{kh}x{kw} {cin}->{co} {act} on ({n}, {h}, {w}, {cin})"
-        k = c2.conv2d_same_cuda(x, wt, b, act=act)
+        pw = c2.pack_weights(wt)  # as the U-Net's convolutions hold them
+        before = c2.launch_count
+        k = c2.conv2d_same_cuda(x, pw, b, act=act)
+        require(c2.launch_count == before + 1, f"K11 {what} did not take the tensor-core kernel")
+        route = "tensor cores, conv2d_mma.cu"  # every bf16 layer, the narrow ones padded
         p = c2.conv2d_same_plain(x, wt, b, act=act)
         torch.cuda.synchronize()
         e, ok = within_one_bf16_step(k, p)
@@ -702,26 +708,26 @@ def check_conv_kernel(raw, workdir: Path) -> tuple[dict, list[dict]]:
         x_cl = x.permute(0, 3, 1, 2)  # NHWC bytes = channels_last NCHW
         w_cl = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
         b16 = b.to(torch.bfloat16)
-        ms = cuda_ms(lambda: c2.conv2d_same_cuda(x, wt, b, act=act))
+        ms = cuda_ms(lambda: c2.conv2d_same_cuda(x, pw, b, act=act))
         plain_ms = cuda_ms(lambda: c2.conv2d_same_plain(x, wt, b, act=act))
         library_ms = cuda_ms(lambda: F.conv2d(x_cl, w_cl, b16, padding=kh // 2))
         flops = 2.0 * n * h * w * kh * kw * cin * co
         nbytes = 2.0 * (x.numel() + wt.numel() + n * h * w * co) + 4.0 * co
-        log(f"K11 conv2d_same, {what}: max abs err {e:.3e}, within one bf16 step: {ok}")
+        log(f"K11 conv2d_same, {what} ({route}): max abs err {e:.3e}, within one bf16 step: {ok}")
         b_ = bound(nbytes, flops, BF16_TENSOR_FLOP_PER_S)
         fp32_floor = flops / FP32_FLOP_PER_S * 1e3
         log(f"  {flops / 1e9:.1f} GFLOP, {nbytes / 1e9:.3f} GB; time: kernel {ms:.3f} ms "
             f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, F.conv2d {library_ms:.3f} ms, "
             f"bound {b_['bound_ms']:.3f} ms ({b_['bound_by']}), FP32-core floor {fp32_floor:.3f} ms")
-        shapes.append(dict(layer=what, uses=uses[key], gflop=flops / 1e9, gbytes=nbytes / 1e9,
-                           max_abs_err=e, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                           fp32_floor_ms=fp32_floor, **b_))
+        shapes.append(dict(layer=what, uses=uses[key], route=route, gflop=flops / 1e9, gbytes=nbytes / 1e9,
+                           max_abs_err=e, ms=ms, tflops=flops / ms / 1e9, plain_ms=plain_ms,
+                           library_ms=library_ms, fp32_floor_ms=fp32_floor, **b_))
         if (h, kh, cin, co) == (1024, 3, 32, 32):
             # an independent reference: the same convolution in float64
             y64 = F.conv2d(x.double().permute(0, 3, 1, 2), wt.double().permute(3, 2, 0, 1),
                            b.double(), padding=1)
             y64 = y64.clamp(min=0.0).permute(0, 2, 3, 1)  # the layer's relu
-            e64, ok64 = within_one_bf16_step(c2.conv2d_same_cuda(x, wt, b, act=act), y64)
+            e64, ok64 = within_one_bf16_step(c2.conv2d_same_cuda(x, pw, b, act=act), y64)
             log(f"  against float64: max abs err {e64:.3e} (max |y| {y64.abs().max().item():.3e}), "
                 f"within one bf16 step: {ok64}")
             require(ok64, "K11 disagrees with the float64 convolution")
@@ -729,7 +735,12 @@ def check_conv_kernel(raw, workdir: Path) -> tuple[dict, list[dict]]:
             dominant = dict(ms=ms, plain_ms=plain_ms, **b_, library_ms=library_ms)
         del x_cl, w_cl
     del captured, pred
-    row = dict(name="conv2d_same (K11)", route="cuda", source="merfish3d_tpu_torch/csrc/conv2d.cu",
+    k11_ms = sum(s["uses"] * s["ms"] for s in shapes)
+    lib_ms = sum(s["uses"] * s["library_ms"] for s in shapes)
+    tflop = sum(s["uses"] * s["gflop"] for s in shapes) / 1e3
+    log(f"K11 over one c32 batch (sum of uses x ms over the {len(shapes)} layers): {k11_ms:.3f} ms "
+        f"({tflop / k11_ms * 1e3:.1f} TFLOP/s over {tflop:.3f} TFLOP); F.conv2d {lib_ms:.3f} ms")
+    row = dict(name="conv2d_same (K11)", route="cuda", source="merfish3d_tpu_torch/csrc/conv2d_mma.cu",
                replaces="merfish3d_tpu/ops/conv2d.py:105", max_abs_err=err, **dominant)
     return row, shapes
 
@@ -1267,6 +1278,7 @@ def main() -> int:
     # -- 4 + 5 + 6. the main path, counting launches
     dec.launch_count = 0
     c2.launch_count = 0
+    c2.launch_count_direct = 0
     fd.launch_count_zy = 0
     fd.launch_count_x_decode = 0
     for counts in (pfft.launch_count, rk.launch_count):
@@ -1369,8 +1381,10 @@ def main() -> int:
         "update_select_f32 (K5)": rk.launch_count["update_select"],
         "conv2d_same (K11)": c2.launch_count,
     }
-    log(f"launch counts on the main path: {launches}")
+    log(f"launch counts on the main path: {launches}; K11's FP32-core (f32-operand) kernel "
+        f"{c2.launch_count_direct}")
     require(all(n > 0 for n in launches.values()), "a kernel of the path never launched")
+    require(c2.launch_count_direct == 0, "a U-Net convolution missed the tensor-core kernel")
     require(sorted(launches) == sorted(row["name"] for row in kernels), "a kernel has no row")
 
     # one production bit through the kernels and through the plain versions

@@ -27,7 +27,7 @@ from typing import Optional
 _PKG = Path(__file__).parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("decode.cu", "fused_decode.cu", "pfft.cu", "rlgc.cu", "conv2d.cu")
+SOURCES = ("decode.cu", "fused_decode.cu", "pfft.cu", "rlgc.cu", "conv2d.cu", "conv2d_mma.cu")
 HEADERS = ("fft128.cuh",)  # included by the sources; part of the library's hash
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -130,8 +130,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.ratio_kld_f32.restype = i
     lib.update_select_f32.argtypes = [p] * 9 + [i] * 11 + [p]
     lib.update_select_f32.restype = i
-    lib.conv2d_same_bf16.argtypes = [p] * 4 + [i] * 9 + [p]
-    lib.conv2d_same_bf16.restype = i
+    lib.conv2d_same_mma_bf16.argtypes = [p] * 4 + [i] * 10 + [p]
+    lib.conv2d_same_mma_bf16.restype = i
     lib.conv2d_same_f32.argtypes = [p] * 4 + [i] * 8 + [p]
     lib.conv2d_same_f32.restype = i
 

@@ -1,32 +1,20 @@
-// Stride-1 SAME 2D convolution with a fused bias + activation epilogue
-// (ops/conv2d.py), for Hopper: K11, every convolution of the U-FISH U-Net.
+// Stride-1 SAME 2D convolution with f32 operands and a fused bias +
+// activation epilogue (ops/conv2d.py): K11's f32-operand route. The U-Net
+// runs bf16 operands through csrc/conv2d_mma.cu on the tensor cores; this
+// route keeps f32 operands exact on the FP32 cores (the tensor cores would
+// take them only as TF32).
 //
-// Replaces the Pallas kernel of merfish3d_tpu/ops/conv2d.py:
+// Replaces, for f32 operands, the Pallas kernel of merfish3d_tpu/ops/conv2d.py:
 //   K11 conv2d_lanepack_packed (_conv_scan_kernel)
 //
-// It computes what the TPU kernel computes, not its layout. The TPU kernel
-// views NHWC activations as 128-lane rows, turns each tap into a host-built
-// (128, g*Co) block matrix and scans y blocks with a VMEM carry, all to keep
-// a 128 x 128 systolic array busy at 32 channels. Here it is a direct
-// convolution over NHWC: y[n, i, j, o] = act(b[o] + sum over (dy, dx, c) of
+// y[n, i, j, o] = act(b[o] + sum over (dy, dx, c) of
 // x[n, i + dy - lo_h, j + dx - lo_w, c] * w[dy, dx, c, o]), zero outside the
 // image, with SAME's lo = (k - 1) / 2 on each axis (the 2x2 decoder kernels
-// take lo 0, hi 1). Any Cin and Co; k <= 3 on each axis.
+// take lo 0, hi 1). Any Cin and Co; k <= 3 on each axis. Every sum runs in
+// f32 in another order than a CPU or cuDNN convolution.
 //
-// Operands are bf16 (the U-Net's compute type) or f32, widened to f32 in
-// shared memory; products of bf16 values are exact in f32 and every sum runs
-// in f32. The epilogue adds the f32 bias, applies the activation in f32 and
-// rounds once to the output type (round to nearest even), as the TPU kernel
-// does. Sums run in another order than a CPU or cuDNN convolution, so a bf16
-// output may differ from theirs by one bf16 rounding step.
-//
-// Bound: at the U-Net's widths (32 to 128 channels, 3x3) a convolution does
-// 2 * 9 * Cin FLOPs per output value against ~2 * (Cin + Co) bytes per pixel
-// moved, far above the card's balance, so it is bound by operations. This
-// first kernel runs them on the FP32 CUDA cores (67 TFLOP/s peak), not on
-// the tensor cores (989 TFLOP/s bf16): the floor of the dominant layer
-// (3x3, 32 -> 32 on 8 planes of 1024^2, 154.6 GFLOP) is 2.3 ms here against
-// 0.16 ms at the tensor rate. wgmma is a later kernel's work.
+// Bound: at 3x3 and 32 to 128 channels a convolution is bound by
+// operations, here the FP32 cores' (67 TFLOP/s).
 //
 // Design: a block of 8 warps owns an 8-row x 128-column tile of output
 // pixels and 16 output channels. Each thread holds 4 pixels of its row, 32
@@ -36,13 +24,10 @@
 // (8 + kh - 1) rows x (128 + kw - 1) columns, at most 41.6 KB) and the
 // matching weight slice (kh*kw x 8 x 16, read as broadcast float4) sit in
 // shared memory, so every loaded value feeds 16 (input) or 4 (weight) FMAs.
-// The largest layer's weights (3x3x128x128, 295 KB in bf16) never need to
-// fit at once. Input is re-read once per 16-channel group of the output,
-// mostly from L2.
+// Input is re-read once per 16-channel group of the output, mostly from L2.
 //
-// Plain C entry points; each returns cudaGetLastError() after its launch.
+// Plain C entry point; it returns cudaGetLastError() after its launch.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -57,22 +42,10 @@ constexpr int THREADS = LANES * TH;
 
 enum Act { ACT_NONE = 0, ACT_RELU = 1, ACT_SIGMOID = 2 };
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-    return __float2bfloat16_rn(v);
-}
-
-template <typename T, typename TOut, int KH, int KW>
+template <int KH, int KW>
 __global__ void __launch_bounds__(THREADS, 2)
-    conv2d_same_k(const T* __restrict__ x, const T* __restrict__ w, const float* __restrict__ bias,
-                  TOut* __restrict__ y, int h, int wd, int cin, int co, int co_blocks, int act) {
+    conv2d_same_k(const float* __restrict__ x, const float* __restrict__ w, const float* __restrict__ bias,
+                  float* __restrict__ y, int h, int wd, int cin, int co, int co_blocks, int act) {
     constexpr int LO_H = (KH - 1) / 2, LO_W = (KW - 1) / 2;
     constexpr int SR = TH + KH - 1, SC = TW + KW - 1;
     __shared__ float s_x[CIC][SR][SC];
@@ -83,7 +56,7 @@ __global__ void __launch_bounds__(THREADS, 2)
     const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
     const int n = blockIdx.z / co_blocks;
     const int co0 = (blockIdx.z - n * co_blocks) * COT;
-    const T* xn = x + static_cast<long long>(n) * h * wd * cin;
+    const float* xn = x + static_cast<long long>(n) * h * wd * cin;
 
     float acc[PX][COT];
 #pragma unroll
@@ -102,7 +75,7 @@ __global__ void __launch_bounds__(THREADS, 2)
             const int gy = y0 + r - LO_H, gx = x0 + c - LO_W;
             float v = 0.f;
             if (ci < nc && gy >= 0 && gy < h && gx >= 0 && gx < wd)
-                v = to_f32(xn[(static_cast<long long>(gy) * wd + gx) * cin + c0 + ci]);
+                v = xn[(static_cast<long long>(gy) * wd + gx) * cin + c0 + ci];
             s_x[ci][r][c] = v;
         }
         // the weights' (tap, ci, co) slice; HWIO in memory
@@ -110,7 +83,7 @@ __global__ void __launch_bounds__(THREADS, 2)
             const int o = i % COT, ci = (i / COT) % CIC, tap = i / (COT * CIC);
             float v = 0.f;
             if (ci < nc && co0 + o < co)
-                v = to_f32(w[(static_cast<long long>(tap) * cin + c0 + ci) * co + co0 + o]);
+                v = w[(static_cast<long long>(tap) * cin + c0 + ci) * co + co0 + o];
             s_w[tap][ci][o] = v;
         }
         __syncthreads();
@@ -139,7 +112,7 @@ __global__ void __launch_bounds__(THREADS, 2)
         }
     }
 
-    // epilogue: f32 bias and activation, one rounding to the output type
+    // epilogue: f32 bias and activation
     const int gy = y0 + row;
     if (gy >= h) return;
     float b[COT];
@@ -149,7 +122,7 @@ __global__ void __launch_bounds__(THREADS, 2)
     for (int p = 0; p < PX; ++p) {
         const int gx = x0 + lane + p * LANES;
         if (gx >= wd) continue;
-        TOut* out = y + ((static_cast<long long>(n) * h + gy) * wd + gx) * co + co0;
+        float* out = y + ((static_cast<long long>(n) * h + gy) * wd + gx) * co + co0;
 #pragma unroll
         for (int o = 0; o < COT; ++o) {
             float v = acc[p][o] + b[o];
@@ -158,54 +131,37 @@ __global__ void __launch_bounds__(THREADS, 2)
             } else if (act == ACT_SIGMOID) {
                 v = 1.f / (1.f + expf(-v));
             }
-            if (co0 + o < co) out[o] = from_f32<TOut>(v);
+            if (co0 + o < co) out[o] = v;
         }
     }
 }
 
-template <typename T, typename TOut, int KH, int KW>
-int launch(const void* x, const void* w, const float* b, void* y, int n, int h, int wd, int cin,
+template <int KH, int KW>
+int launch(const float* x, const float* w, const float* b, float* y, int n, int h, int wd, int cin,
            int co, int act, cudaStream_t stream) {
     const int co_blocks = (co + COT - 1) / COT;
     const dim3 grid((wd + TW - 1) / TW, (h + TH - 1) / TH, n * co_blocks);
-    conv2d_same_k<T, TOut, KH, KW><<<grid, dim3(LANES, TH), 0, stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(w), b, static_cast<TOut*>(y), h, wd, cin,
-        co, co_blocks, act);
+    conv2d_same_k<KH, KW><<<grid, dim3(LANES, TH), 0, stream>>>(x, w, b, y, h, wd, cin, co, co_blocks, act);
     return cudaGetLastError();
-}
-
-template <typename T, typename TOut>
-int dispatch(const void* x, const void* w, const float* b, void* y, int n, int h, int wd, int cin,
-             int co, int kh, int kw, int act, void* stream) {
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define K11_CASE(KH, KW)                                                                  \
-    if (kh == KH && kw == KW) return launch<T, TOut, KH, KW>(x, w, b, y, n, h, wd, cin, co, act, s);
-    K11_CASE(1, 1) K11_CASE(1, 2) K11_CASE(1, 3)
-    K11_CASE(2, 1) K11_CASE(2, 2) K11_CASE(2, 3)
-    K11_CASE(3, 1) K11_CASE(3, 2) K11_CASE(3, 3)
-#undef K11_CASE
-    return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 extern "C" {
 
-// x (n, h, wd, cin) and w (kh, kw, cin, co) bf16, b (co) f32; y (n, h, wd,
-// co) bf16, or f32 when out_f32. act: 0 none, 1 relu, 2 sigmoid.
-// n * ceil(co / 16) <= 65535 (the wrapper checks).
-int conv2d_same_bf16(const void* x, const void* w, const float* b, void* y, int out_f32, int n,
-                     int h, int wd, int cin, int co, int kh, int kw, int act, void* stream) {
-    if (out_f32)
-        return dispatch<__nv_bfloat16, float>(x, w, b, y, n, h, wd, cin, co, kh, kw, act, stream);
-    return dispatch<__nv_bfloat16, __nv_bfloat16>(x, w, b, y, n, h, wd, cin, co, kh, kw, act,
-                                                  stream);
-}
-
-// the same with f32 operands and output
+// x (n, h, wd, cin) and w (kh, kw, cin, co) f32, b (co) f32; y (n, h, wd,
+// co) f32. act: 0 none, 1 relu, 2 sigmoid. n * ceil(co / 16) <= 65535 (the
+// wrapper checks).
 int conv2d_same_f32(const float* x, const float* w, const float* b, float* y, int n, int h, int wd,
                     int cin, int co, int kh, int kw, int act, void* stream) {
-    return dispatch<float, float>(x, w, b, y, n, h, wd, cin, co, kh, kw, act, stream);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define K11_CASE(KH, KW) \
+    if (kh == KH && kw == KW) return launch<KH, KW>(x, w, b, y, n, h, wd, cin, co, act, s);
+    K11_CASE(1, 1) K11_CASE(1, 2) K11_CASE(1, 3)
+    K11_CASE(2, 1) K11_CASE(2, 2) K11_CASE(2, 3)
+    K11_CASE(3, 1) K11_CASE(3, 2) K11_CASE(3, 3)
+#undef K11_CASE
+    return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

@@ -8,7 +8,8 @@ time. The port has one formulation of the network, the one the
 reference's ``_FastUNet`` runs: BatchNorm folded into the conv weights in
 f32 on the host, then every convolution with bf16 operands, f32 sums and a
 fused bias + activation epilogue that writes bf16 (K11,
-:func:`..ops.conv2d.conv2d_same`, on the card). Max-pool, nearest resize
+:func:`..ops.conv2d.conv2d_same`, on the card; each conv keeps its bf16
+weights packed once for the kernel). Max-pool, nearest resize
 and concatenation are exact on the bf16 activations; the map is returned
 in f32.
 
@@ -30,7 +31,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.conv2d import conv2d_same
+from ..ops.conv2d import PackedWeights, conv2d_same, pack_weights
 from ..ops.filters import gaussian_lowpass
 from .ufish_onnx import load_ufish_onnx_params, seeded_onnx_initializers, structural_onnx_to_flax
 
@@ -150,15 +151,27 @@ def params_from_flax(variables: dict) -> dict[str, torch.Tensor]:
 
 class _Conv(nn.Module):
     """One SAME convolution: f32 weight (kh, kw, Cin, Co) and bias (Co,),
-    run in the input's type through K11 with the epilogue ``act``."""
+    run in the input's type through K11 with the epilogue ``act``. After
+    :meth:`prepare`, bf16 inputs on the weight's device use the bf16 copy
+    packed for the kernel then, instead of casting (and on the card
+    packing) the weight on every call."""
 
     def __init__(self, kh: int, kw: int, cin: int, co: int, act: str):
         super().__init__()
         self.act = act
         self.register_buffer("weight", torch.zeros((kh, kw, cin, co)))
         self.register_buffer("bias", torch.zeros(co))
+        self.packed: Optional[PackedWeights] = None
+
+    def prepare(self) -> None:
+        """Pack the weight as it is now, on its device; call again after
+        changing it."""
+        self.packed = pack_weights(self.weight)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        p = self.packed
+        if x.dtype == torch.bfloat16 and p is not None and p.data.device == x.device:
+            return conv2d_same(x, p, self.bias, act=self.act)
         return conv2d_same(x, self.weight.to(x.dtype), self.bias, act=self.act)
 
 
@@ -201,6 +214,13 @@ class UFishNet(nn.Module):
         net = cls(**topology_from_flax(variables))
         net.load_state_dict(params_from_flax(variables))
         return net
+
+    def prepare(self) -> "UFishNet":
+        """Pack every convolution's weights for K11 (:meth:`_Conv.prepare`)."""
+        for m in self.modules():
+            if isinstance(m, _Conv):
+                m.prepare()
+        return self
 
     @staticmethod
     def _pool(x: torch.Tensor) -> torch.Tensor:
@@ -289,7 +309,7 @@ class UFishPredictor(nn.Module):
             params = structural_onnx_to_flax(
                 seeded_onnx_initializers(seed, base_features or 32, up_mode="resize")
             )
-        self.net = UFishNet.from_flax(params).to(device)
+        self.net = UFishNet.from_flax(params).to(device).prepare()
         self.pad_to = int(pad_to)
         self.model_name = "cnn"
 

@@ -225,6 +225,7 @@ def profile_decon(raw) -> None:
 
 # device kernels by name fragment -> group of the U-FISH breakdown (first match)
 UFISH_KERNELS = (
+    ("conv2d_same_mma_k", "K11 conv2d_same"),
     ("conv2d_same_k", "K11 conv2d_same"),
     ("Sort", "normalize: sort"),
     ("sort", "normalize: sort"),

@@ -319,6 +319,10 @@ _K11_CASES = [
     ((1, 33, 130, 24), (1, 1, 24, 1), "sigmoid"),  # the head: Co = 1
     ((1, 16, 16, 128), (3, 3, 128, 256), "none"),  # Cin and Co past one chunk each
     ((3, 20, 36, 5), (1, 3, 5, 19), "relu"),  # odd widths, a 1x3 kernel
+    ((1, 24, 40, 128), (1, 1, 128, 256), "none"),  # c32's 1x1 up-conv: two N halves
+    ((1, 24, 40, 128), (3, 3, 128, 128), "relu"),  # c32's bottleneck
+    ((2, 32, 100, 64), (3, 3, 64, 32), "relu"),  # c32's last decoder conv, ragged width
+    ((2, 40, 72, 8), (3, 3, 8, 8), "relu"),  # the c8 net: Cin = 8
 ]
 
 
@@ -326,18 +330,22 @@ _K11_CASES = [
 @pytest.mark.parametrize("shape,kshape,act", _K11_CASES)
 def test_k11_matches_plain(cuda, shape, kshape, act, dtype):
     """K11 against its plain version (F.conv2d on f32 copies): bf16 within
-    one bf16 step, f32 within 2e-5 x max (sums in another order)."""
+    one bf16 step, f32 within 2e-5 x max (sums in another order). bf16
+    operands, narrow layers included, take the tensor-core kernel; f32
+    operands the FP32-core kernel."""
     from merfish3d_tpu_torch.ops import conv2d as c2
 
     rng = np.random.default_rng(9)
     x = torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device=cuda).to(dtype)
     w = torch.as_tensor((rng.standard_normal(kshape) * 0.2).astype(np.float32), device=cuda).to(dtype)
     b = torch.as_tensor(rng.standard_normal(kshape[-1]).astype(np.float32), device=cuda)
-    before = c2.launch_count
+    before = (c2.launch_count, c2.launch_count_direct)
     k = c2.conv2d_same(x, w, b, act=act)
     p = c2.conv2d_same_plain(x, w, b, act=act)
     torch.cuda.synchronize()
-    assert c2.launch_count == before + 1 and k.dtype == dtype and k.shape == p.shape
+    mma = dtype == torch.bfloat16
+    assert (c2.launch_count, c2.launch_count_direct) == (before[0] + mma, before[1] + (not mma))
+    assert k.dtype == dtype and k.shape == p.shape
     if dtype == torch.bfloat16:
         assert _within_one_bf16_step(k, p)
         k32 = c2.conv2d_same_cuda(x, w, b, act=act, out_dtype=torch.float32)
@@ -380,9 +388,11 @@ def test_predictor_batch_on_card_matches_plain(cuda, monkeypatch):
     planes = np.random.default_rng(10).poisson(40.0, (8, 256, 256)).astype(np.float32)
     planes[:, 100:104, 50:54] += 900.0
     pred = ufish.UFishPredictor(params=variables, device=cuda)
-    before = c2.launch_count
+    before = (c2.launch_count, c2.launch_count_direct)
     got = pred.predict_planes(torch.as_tensor(planes, device=cuda))
-    assert c2.launch_count - before == 13  # every conv of the c8 U-Net, once
+    # every conv of the c8 U-Net once, the first (Cin = 1) and the head
+    # (Co = 1) included, through the tensor-core kernel
+    assert (c2.launch_count - before[0], c2.launch_count_direct - before[1]) == (13, 0)
     monkeypatch.setattr(ufish, "conv2d_same", c2.conv2d_same_plain)
     want = pred.predict_planes(torch.as_tensor(planes, device=cuda))
     torch.cuda.synchronize()
