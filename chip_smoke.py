@@ -17,7 +17,8 @@ Run from the root of a checkout. Phases, each raising on failure:
    admits; K10, K9, K4 and K5 on the first RLGC iteration of a production
    readout bit padded to (32, 1152, 1152)), with timings (CUDA events), the
    bound of each and the time of one ``torch`` call or composition
-   computing the same function; K11 at each distinct convolution of one
+   computing the same function (K7's and K10's two passes also apart,
+   by the profiler); K11 at each distinct convolution of one
    8-plane batch of the production tile through a full-width c32
    ConvTranspose U-FISH network (seeded weights), on the activations that
    batch gives each layer, with the weights packed as the network holds
@@ -68,6 +69,7 @@ from __future__ import annotations
 import contextlib
 import importlib.util
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -363,6 +365,33 @@ def _dft_flops(shape, axes, real_input: bool) -> float:
 
 # every DFT timing of the run (forward and inverse), for the summary
 DFT_TIMES: list[dict] = []
+# the DFT wrappers whose call is two launches: each pass is timed apart
+TWO_PASS_DFTS = ("dft_middle_cuda", "dft_zx_cuda")
+
+
+def device_ms_by_kernel(fn, reps: int = 5) -> dict:
+    """Device ms of one launch of each kernel ``fn()`` runs, by its symbol:
+    the mean over the launches ``torch.profiler`` recorded in ``reps``
+    calls, after a warm-up call (a call that launches each kernel once, as
+    the DFT wrappers do, then takes their sum)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total: dict = {}
+    count: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = re.sub(r"^void |\(anonymous namespace\)::", "", e.name).split("(")[0]
+            total[name] = total.get(name, 0.0) + (e.time_range.end - e.time_range.start) * 1e-3
+            count[name] = count.get(name, 0) + 1
+    return {name: ms / count[name] for name, ms in total.items()}
 
 
 def check_dft(name, kernel, plain, library, xr, xi, axes, replaces):
@@ -401,11 +430,18 @@ def check_dft(name, kernel, plain, library, xr, xi, axes, replaces):
     log(f"  time: forward kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, torch.fft {library_ms:.3f} ms, "
         f"bound {b['bound_ms']:.3f} ms ({b['bound_by']}); inverse kernel {inv_ms:.3f} ms, "
         f"plain {inv_plain_ms:.3f} ms")
+    passes = {}
+    if kernel.__name__ in TWO_PASS_DFTS:
+        passes = {"forward": device_ms_by_kernel(lambda: kernel(xr, xi)),
+                  "inverse": device_ms_by_kernel(lambda: kernel(*fp, inverse=True))}
+        for way, split in passes.items():
+            log(f"  {way} passes (profiler): " + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()))
     row = dict(name=name, route="cuda", source="merfish3d_tpu_torch/csrc/pfft.cu", replaces=replaces,
                max_abs_err=max(err, ierr), ms=ms, plain_ms=plain_ms, **b, library_ms=library_ms)
     DFT_TIMES.append(dict(name=name, shape=list(shape), real_input=xi is None, ms=ms, inverse_ms=inv_ms,
                           plain_ms=plain_ms, inverse_plain_ms=inv_plain_ms, library_ms=library_ms,
-                          bound_ms=b["bound_ms"], max_rel_err=max(err / scale, ierr / iscale)))
+                          bound_ms=b["bound_ms"], max_rel_err=max(err / scale, ierr / iscale),
+                          passes_ms=passes))
     return row, fp
 
 

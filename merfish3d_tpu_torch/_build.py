@@ -116,9 +116,9 @@ def _bind(lib: ctypes.CDLL) -> None:
         p, p, p, i, p, p, p, i, i, i, i, i, f, f, f, p, p, p, p, p,
     ]
     lib.x_lowpass_decode_f32.restype = i
-    lib.dft_trailing_f32.argtypes = [p, p, p, p, p, p, p, ll, i, i, p]
+    lib.dft_trailing_f32.argtypes = [p] * 7 + [ll, i, i, i, p]
     lib.dft_trailing_f32.restype = i
-    lib.dft_middle_f32.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
+    lib.dft_middle_f32.argtypes = [p] * 7 + [i] * 5 + [p]
     lib.dft_middle_f32.restype = i
     lib.dft_leading_f32.argtypes = [p, p, p, p, p, i, ll, p]
     lib.dft_leading_f32.restype = i

@@ -8,56 +8,79 @@
 //   K9  dft_mid_conv  (_dft_mid_conv_kernel)
 //
 // Complex values are (real, imag) float32 planes in device memory; the
-// constant tables (w1 (n1, n1), twiddle (n1, 128), w2 (128, 128), dense
-// wz (n, n); for K10 also W128^j (128) and wz zero-padded to (n, nzp))
-// are complex64, built on the host in double precision and
-// uploaded by the wrapper, so no angle is ever evaluated here. Inverse
-// tables carry the 1/n scale. All arithmetic is FP32 FMA on CUDA cores.
+// constant tables (w1 (n1, n1), twiddle (n1, 128), W128^j (128), dense
+// wz (n, n), for K10 zero-padded to (n, nzp); for K9 also w2 (128, 128))
+// are complex64, built on the host in double precision and uploaded by
+// the wrapper, so no angle is ever evaluated here. Inverse tables carry
+// the 1/n scale (in the twiddle). All arithmetic is FP32 FMA on CUDA
+// cores.
 //
 // Cooley-Tukey split of a length n = n1*128 line, natural j = 128p + q:
 //   forward  C[k][q] = tw[k][q] * sum_p x[p][q] w1[k][p]      (stage 1)
-//            X[k*128 + m] = sum_q C[k][q] w2[q][m]            (stage 2)
+//            X[k*128 + m] = sum_q C[k][q] W128^(qm)          (stage 2)
 //   so position k*128 + m holds frequency n1*m + k: the scrambled order
 //   falls out of the decomposition with no permute;
-//   inverse  E[k][q] = tw'[k][q] * sum_m Y[k*128 + m] w2'[m][q]
+//   inverse  E[k][q] = tw'[k][q] * sum_m Y[k*128 + m] W128^(-mq)
 //            x[p*128 + q] = sum_k E[k][q] w1'[k][p]            (natural).
 //
-// What bounds K6-K9: a line's stage 2 is a dense 128-point DFT, 128
-// complex multiply-adds per element (~8*(n1 + 128) flops per element and
-// axis), well above the 12-16 bytes an element moves; at the card's 67
-// TFLOP/s FP32 this design's flops take ~4x the memory bound (3.35 TB/s).
-// The transform itself needs only ~5*log2(n) flops per element and axis,
-// so its bound on this card is the memory bound. The
-// design keeps every operand of those sums on chip: a block stages its
-// lines in shared memory once, stage 1 runs from registers (a thread owns
-// one q of a line and holds its n1 <= 24 inputs), stage 2 reads the staged
-// line as a warp broadcast and w2 through the read-only cache. K10 runs
-// its stage 2 as the radix FFT of fft128.cuh instead; K6, K7 and K9 keep
-// the dense one for now.
+// What bounds them: the transform needs ~5*log2(n) flops an element and
+// axis against 12-16 bytes moved, so on this card (67 TFLOP/s FP32,
+// 3.35 TB/s) its bound is the bytes. A dense 128-point stage 2 (128
+// complex multiply-adds an element) is instead bound by issuing its
+// loads: a shared-memory operand and a w2 entry from a 128 KB table that
+// L1 cannot keep, for every multiply-add. So K6, K7 and K10 run stage 2
+// as the radix FFT of fft128.cuh (16 x 8 in registers, one exchange
+// through shared memory, ~2.7 kflop a transform instead of 131); only K9
+// keeps the dense one for now. Stage 1 (n1 <= 24 points, any length) is
+// dense, from registers: a thread holds the n1 values of one q.
 //
 // Per kernel:
-// - K6 (x, contiguous): 2 rows per block, shared memory 2*n*8 B <= 48 KB.
-// - K7 (y, stride nx): a block holds 8 adjacent x columns of one z plane,
-//   threads run along x so every global access of a warp is 32 B lines;
-//   shared memory n*8*8 B <= 192 KB at n = 3072.
+// - K6 (x, contiguous; merfish3d_tpu/ops/pfft.py dft_trailing): one
+//   launch of K10's x pass below over the `rows` lines.
+// - K7 (y, stride nx; merfish3d_tpu/ops/pfft.py dft_middle). The TPU
+//   kernel holds whole y columns in VMEM and runs both stages as MXU
+//   matmuls; here a column (n*8 B, 17 KB at n = 2176) times the 32 x
+//   columns a coalesced access needs would be more than a block's shared
+//   memory. So K7 is two launches, each a streaming pass:
+//   pass A (dft_middle_a): stage 1 from registers, one thread a (z, q, x)
+//     with lanes along x (128 B a warp access), so w1 and the twiddle are
+//     warp-uniform loads. Forward: with the twiddle, natural order in.
+//     Inverse: the n1-point synthesis to natural order, in place.
+//   pass B (dft_middle_b): one block a (z, group k, 32-column tile): the
+//     128 x 32 tile is staged transposed (a column's 128-group contiguous
+//     at an odd stride of 129 float2, so the row-wise stores of a
+//     half-warp hit 16 bank pairs), then 32 fft128::transforms, 8 lanes
+//     each, four a warp; the two groups of a half-warp are columns 8
+//     apart, 8 bank pairs apart, so the transform's accesses are
+//     conflict-free too. 33 KB of shared memory a block, so several
+//     blocks an SM at every length. Inverse: the conjugate twiddle (1/n
+//     folded in) on the way out. mid_group_tile is written so that K9
+//     can run it between its own loads and stores.
+//   Forward: pass A into the output, pass B in place on it. Inverse:
+//   pass B into the output, pass A in place; the intermediate is
+//   complex, so the output's imaginary plane is written as scratch even
+//   when only the real part is returned. 32 B an element move in all
+//   (twice the one-pass bound).
 // - K8 (z dense): a block holds 64 adjacent (y, x) columns, n*64*8 B
 //   <= 48 KB; the (n, n) matrix is read through the read-only cache.
+// - K9 (y; forward, OTF product, inverse in one launch): a block holds 8
+//   adjacent x columns of one z plane, stage 2 dense as above.
 // - K10 (z and x of a (z, y, x) volume; merfish3d_tpu/ops/pfft.py dft_zx,
 //   _dft_zx_fwd_kernel / _dft_zx_inv_kernel). The TPU kernel keeps a
 //   whole (nz, nx) plane in VMEM and runs both 128-point stages as MXU
 //   matmuls. On this card a plane is 114-450 KB for the shapes
-//   zx_supported admits, more than a block's shared memory, and a dense
-//   128-point stage on the CUDA cores is bound by issuing its table loads
-//   (two loads a complex multiply-add, a 128 KB table that L1 cannot keep).
-//   The function itself is bound by bytes: 12 B an element (a real input)
-//   at 5 log2(n) flops an element and axis. So K10 is two launches in one
-//   call, each memory-bound:
-//   x pass (dft_zx_x): one warp a line, four lines a block. Stage 1 and
-//     the twiddle run from registers as in K6; the n1 128-point transforms
-//     are fft128::transform (4 at a time, 8 lanes each) on the line's
-//     slab in shared memory (n1 x 136 float2, 4.25 KB per n1: 39 KB a
-//     block at n1 = 9, so at least two blocks an SM at every admitted
-//     length); lines are read and written whole and coalesced.
+//   zx_supported admits, more than a block's shared memory. So K10 is
+//   two launches in one call, each memory-bound:
+//   x pass (dft_zx_x): one line a block of four warps. Stage 1 and the
+//     twiddle run from registers (a thread a q); the n1 128-point
+//     transforms are fft128::transform (4 a warp at a time, 8 lanes each)
+//     on the line's slab in shared memory (n1 x 136 float2, 4.25 KB per
+//     n1, <= 25.5 KB); lines are read and written whole and coalesced.
+//     Registers, not shared memory, bound the blocks an SM: at most 80 a
+//     thread for six blocks (24 warps; the forward spills a few values to
+//     L1 for it). A warp a line with four lines a block, the first design,
+//     fit only three blocks (12 warps) an SM at n1 = 17 (74 KB each) and
+//     measured slower at n1 = 15, 17 and 24, as fast at n1 = 9.
 //   z pass (dft_zx_z): the dense nz-point DFT (nz <= 96, any length) of
 //     64 adjacent columns per block, staged in shared memory (<= 48 KB);
 //     a lane accumulates 8 outputs of two columns in registers, and each
@@ -82,8 +105,7 @@ namespace {
 constexpr int LANE = 128;
 constexpr int MAX_N1 = 24;
 constexpr int THREADS = 256;
-constexpr int TRAIL_ROWS = 2;
-constexpr int MID_TX = 8;
+constexpr int MID_TX = 8;  // K9: x columns a block
 constexpr int LEAD_COLS = 64;
 
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
@@ -98,26 +120,20 @@ __device__ __forceinline__ void cmac(float2& acc, float2 a, float2 b) {
 }
 
 // L lines of length n1*128: element j of line l sits at base + l*ls + j*js
-// of each channel; lines >= valid are a ragged tail and skipped. Shared
-// memory holds a line group as S[j*L + l].
+// of each channel. Shared memory holds a line group as S[j*L + l].
 struct Lines {
     long long base, ls, js;
-    int L, valid;
+    int L;
     __device__ long long at(int l, int j) const {
         return base + l * ls + static_cast<long long>(j) * js;
     }
 };
 
-// work item -> (index i along the line, line l): the direction that is
-// contiguous in device memory is the fastest, so accesses coalesce
-__device__ __forceinline__ void split_item(int item, int extent, const Lines& g, int& i, int& l) {
-    if (g.js == 1) {
-        i = item % extent;
-        l = item / extent;
-    } else {
-        l = item % g.L;
-        i = item / g.L;
-    }
+// work item -> (index i along the line, line l): adjacent lines (ls = 1)
+// are the fastest, so accesses coalesce
+__device__ __forceinline__ void split_item(int item, const Lines& g, int& i, int& l) {
+    l = item % g.L;
+    i = item / g.L;
 }
 
 // forward stage 1 + twiddle, from device memory into S = C[(k*128+q)*L + l]
@@ -126,8 +142,7 @@ __device__ void ct_fwd_stage1(const float* xr, const float* xi, const Lines g, i
                               float2* S) {
     for (int item = threadIdx.x; item < LANE * g.L; item += blockDim.x) {
         int q, l;
-        split_item(item, LANE, g, q, l);
-        if (l >= g.valid) continue;
+        split_item(item, g, q, l);
         float2 xv[MAX_N1];
 #pragma unroll
         for (int p = 0; p < MAX_N1; ++p) {
@@ -146,76 +161,13 @@ __device__ void ct_fwd_stage1(const float* xr, const float* xi, const Lines g, i
     }
 }
 
-// forward stage 2, from S into device memory (scrambled order)
-__device__ void ct_fwd_stage2(const float2* S, const Lines g, int n1,
-                              const float2* __restrict__ w2, float* yr, float* yi) {
-    for (int item = threadIdx.x; item < LANE * g.L; item += blockDim.x) {
-        int m, l;
-        split_item(item, LANE, g, m, l);
-        if (l >= g.valid) continue;
-        for (int k = 0; k < n1; ++k) {
-            const float2* row = S + k * LANE * g.L + l;
-            float2 acc = make_float2(0.f, 0.f);
-#pragma unroll 8
-            for (int q = 0; q < LANE; ++q) cmac(acc, row[q * g.L], __ldg(&w2[q * LANE + m]));
-            const long long o = g.at(l, k * LANE + m);
-            yr[o] = acc.x;
-            yi[o] = acc.y;
-        }
-    }
-}
-
-// a line group from device memory into S[j*L + l]
-__device__ void load_lines(const float* xr, const float* xi, const Lines g, int n, float2* S) {
-    for (int item = threadIdx.x; item < n * g.L; item += blockDim.x) {
-        int j, l;
-        split_item(item, n, g, j, l);
-        if (l >= g.valid) continue;
-        const long long o = g.at(l, j);
-        S[j * g.L + l] = make_float2(xr[o], xi ? xi[o] : 0.f);
-    }
-}
-
-// inverse from a scrambled line group in S: stage 2, conjugate twiddle,
-// then the n1-point synthesis writing natural order (yi may be null)
-__device__ void ct_inv(const float2* S, const Lines g, int n1, const float2* __restrict__ w1,
-                       const float2* __restrict__ tw, const float2* __restrict__ w2,
-                       float* yr, float* yi) {
-    for (int item = threadIdx.x; item < LANE * g.L; item += blockDim.x) {
-        int q, l;
-        split_item(item, LANE, g, q, l);
-        if (l >= g.valid) continue;
-        float2 e[MAX_N1];
-#pragma unroll
-        for (int k = 0; k < MAX_N1; ++k) {
-            if (k < n1) {
-                const float2* row = S + k * LANE * g.L + l;
-                float2 acc = make_float2(0.f, 0.f);
-#pragma unroll 4
-                for (int m = 0; m < LANE; ++m) cmac(acc, row[m * g.L], __ldg(&w2[m * LANE + q]));
-                e[k] = cmul(acc, __ldg(&tw[k * LANE + q]));
-            }
-        }
-        for (int p = 0; p < n1; ++p) {
-            float2 acc = make_float2(0.f, 0.f);
-#pragma unroll
-            for (int k = 0; k < MAX_N1; ++k)
-                if (k < n1) cmac(acc, e[k], __ldg(&w1[k * n1 + p]));
-            const long long o = g.at(l, p * LANE + q);
-            yr[o] = acc.x;
-            if (yi) yi[o] = acc.y;
-        }
-    }
-}
-
 // inverse stage 1 from E[(k*128+q)*L + l] in S: the n1-point synthesis,
 // natural order out
 __device__ void ct_inv_stage1(const float2* S, const Lines g, int n1,
                               const float2* __restrict__ w1, float* yr, float* yi) {
     for (int item = threadIdx.x; item < LANE * g.L; item += blockDim.x) {
         int q, l;
-        split_item(item, LANE, g, q, l);
-        if (l >= g.valid) continue;
+        split_item(item, g, q, l);
         float2 e[MAX_N1];
 #pragma unroll
         for (int k = 0; k < MAX_N1; ++k)
@@ -258,60 +210,12 @@ __device__ void dense_cols(const float* xr, const float* xi, float* yr, float* y
     __syncthreads();
 }
 
-// ---------------------------------------------------------------- K6
-__device__ Lines trailing_lines(long long rows, int n1) {
-    const int n = n1 * LANE;
-    const long long r0 = static_cast<long long>(blockIdx.x) * TRAIL_ROWS;
-    const long long left = rows - r0;
-    return Lines{r0 * n, n, 1, TRAIL_ROWS, static_cast<int>(left < TRAIL_ROWS ? left : TRAIL_ROWS)};
-}
-
-__global__ void __launch_bounds__(THREADS)
-dft_trailing_fwd(const float* xr, const float* xi, float* yr, float* yi, const float2* w1,
-                 const float2* tw, const float2* w2, long long rows, int n1) {
-    extern __shared__ float2 smem[];
-    const Lines g = trailing_lines(rows, n1);
-    ct_fwd_stage1(xr, xi, g, n1, w1, tw, smem);
-    __syncthreads();
-    ct_fwd_stage2(smem, g, n1, w2, yr, yi);
-}
-
-__global__ void __launch_bounds__(THREADS)
-dft_trailing_inv(const float* xr, const float* xi, float* yr, float* yi, const float2* w1,
-                 const float2* tw, const float2* w2, long long rows, int n1) {
-    extern __shared__ float2 smem[];
-    const Lines g = trailing_lines(rows, n1);
-    load_lines(xr, xi, g, n1 * LANE, smem);
-    __syncthreads();
-    ct_inv(smem, g, n1, w1, tw, w2, yr, yi);
-}
-
-// ---------------------------------------------------------------- K7
+// K9's line group: MID_TX adjacent x columns of one z plane
 __device__ Lines middle_lines(int n1, int nx) {
     const int tiles = nx / MID_TX;
     const long long z = blockIdx.x / tiles;
     const int x0 = (blockIdx.x % tiles) * MID_TX;
-    return Lines{z * n1 * LANE * nx + x0, 1, nx, MID_TX, MID_TX};
-}
-
-__global__ void __launch_bounds__(THREADS)
-dft_middle_fwd(const float* xr, const float* xi, float* yr, float* yi, const float2* w1,
-               const float2* tw, const float2* w2, int n1, int nx) {
-    extern __shared__ float2 smem[];
-    const Lines g = middle_lines(n1, nx);
-    ct_fwd_stage1(xr, xi, g, n1, w1, tw, smem);
-    __syncthreads();
-    ct_fwd_stage2(smem, g, n1, w2, yr, yi);
-}
-
-__global__ void __launch_bounds__(THREADS)
-dft_middle_inv(const float* xr, const float* xi, float* yr, float* yi, const float2* w1,
-               const float2* tw, const float2* w2, int n1, int nx) {
-    extern __shared__ float2 smem[];
-    const Lines g = middle_lines(n1, nx);
-    load_lines(xr, xi, g, n1 * LANE, smem);
-    __syncthreads();
-    ct_inv(smem, g, n1, w1, tw, w2, yr, yi);
+    return Lines{z * n1 * LANE * nx + x0, 1, nx, MID_TX};
 }
 
 // ---------------------------------------------------------------- K8
@@ -326,61 +230,57 @@ dft_leading_k(const float* xr, const float* xi, float* yr, float* yi, const floa
 }
 
 // ---------------------------------------------------------------- K10
-constexpr int ZX_WARPS = 4;       // lines (one a warp) per x-pass block
+constexpr int ZX_WARPS = 4;       // warps of an x-pass block (one line)
 constexpr int ZX_GS = LANE + 8;   // a 128-group's stride in shared memory (bank offset)
 constexpr int ZX_COLS = 64;       // columns per z-pass block, two a lane
 constexpr int ZX_KT = 8;          // outputs a z-pass warp accumulates at once
 constexpr int ZX_ZWARPS = 8;      // the most warps a z-pass block has
 
-// x pass: the Cooley-Tukey DFT of `rows` contiguous lines of n1*128.
-// Forward: natural order in, scrambled out (position k*128 + m holds
-// frequency n1*m + k). Inverse: scrambled in, natural out, 1/n in tw;
-// write_imag = 0 drops the imaginary output. In place is allowed: a warp
-// reads its whole line before it writes.
+// x pass: the Cooley-Tukey DFT of `rows` contiguous lines of n1*128, a
+// line a block of ZX_WARPS warps. Forward: natural order in, scrambled
+// out (position k*128 + m holds frequency n1*m + k). Inverse: scrambled
+// in, natural out, 1/n in tw; write_imag = 0 drops the imaginary output.
+// In place is allowed: the line is read whole before it is written.
 template <bool INV>
-__global__ void __launch_bounds__(ZX_WARPS * 32, 4)
+__global__ void __launch_bounds__(ZX_WARPS * 32, 6)
 dft_zx_x(const float* xr, const float* xi, float* yr, float* yi, const float2* __restrict__ w1,
-         const float2* __restrict__ tw, const float2* __restrict__ w128, long long rows, int n1,
-         int write_imag) {
-    extern __shared__ float2 smem[];
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const long long row = static_cast<long long>(blockIdx.x) * ZX_WARPS + warp;
-    if (row >= rows) return;  // the whole warp: nothing below synchronizes the block
+         const float2* __restrict__ tw, const float2* __restrict__ w128, int n1, int write_imag) {
+    static_assert(ZX_WARPS * 32 == LANE, "a thread a q");
+    extern __shared__ float2 S[];  // group k at S + k*ZX_GS
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, q = threadIdx.x;
     const int n = n1 * LANE;
-    const long long base = row * n;
-    float2* S = smem + warp * n1 * ZX_GS;  // group k at S + k*ZX_GS
+    const long long base = static_cast<long long>(blockIdx.x) * n;
     if (!INV) {
         // stage 1 + twiddle: C[k][q] = tw[k][q] * sum_p x[p*128 + q] w1[k][p]
-        for (int q = lane; q < LANE; q += 32) {
-            float2 xv[MAX_N1];
+        float2 xv[MAX_N1];
 #pragma unroll
-            for (int p = 0; p < MAX_N1; ++p) {
-                if (p < n1) {
-                    const long long o = base + p * LANE + q;
-                    xv[p] = make_float2(xr[o], xi ? xi[o] : 0.f);
-                }
-            }
-            for (int k = 0; k < n1; ++k) {
-                float2 acc = make_float2(0.f, 0.f);
-#pragma unroll
-                for (int p = 0; p < MAX_N1; ++p)
-                    if (p < n1) cmac(acc, xv[p], __ldg(&w1[k * n1 + p]));
-                S[k * ZX_GS + q] = cmul(acc, __ldg(&tw[k * LANE + q]));
+        for (int p = 0; p < MAX_N1; ++p) {
+            if (p < n1) {
+                const long long o = base + p * LANE + q;
+                xv[p] = make_float2(xr[o], xi ? xi[o] : 0.f);
             }
         }
+        for (int k = 0; k < n1; ++k) {
+            float2 acc = make_float2(0.f, 0.f);
+#pragma unroll
+            for (int p = 0; p < MAX_N1; ++p)
+                if (p < n1) cmac(acc, xv[p], __ldg(&w1[k * n1 + p]));
+            S[k * ZX_GS + q] = cmul(acc, __ldg(&tw[k * LANE + q]));
+        }
     } else {
-        for (int s = lane; s < n; s += 32)
+        for (int s = q; s < n; s += LANE)
             S[(s >> 7) * ZX_GS + (s & (LANE - 1))] = make_float2(xr[base + s], xi ? xi[base + s] : 0.f);
     }
-    __syncwarp();
-    // the n1 128-point transforms, four at a time, eight lanes each
+    __syncthreads();
+    // the n1 128-point transforms, four a warp at a time, eight lanes each
     const int g = lane >> 3, t = lane & 7;
-    for (int k0 = 0; k0 < n1; k0 += 4) {
+    for (int k0 = 4 * warp; k0 < n1; k0 += 4 * ZX_WARPS) {
         const int k = k0 + g;
         fft128::transform<INV>(S + (k < n1 ? k : 0) * ZX_GS, t, k < n1, w128);
     }
+    __syncthreads();
     if (!INV) {
-        for (int s = lane; s < n; s += 32) {
+        for (int s = q; s < n; s += LANE) {
             const float2 v = S[(s >> 7) * ZX_GS + (s & (LANE - 1))];
             yr[base + s] = v.x;
             yi[base + s] = v.y;
@@ -388,20 +288,18 @@ dft_zx_x(const float* xr, const float* xi, float* yr, float* yi, const float2* _
     } else {
         // conjugate twiddle (1/n folded in), then the n1-point synthesis:
         // x[p*128 + q] = sum_k E[k][q] w1[k][p], natural order
-        for (int q = lane; q < LANE; q += 32) {
-            float2 e[MAX_N1];
+        float2 e[MAX_N1];
+#pragma unroll
+        for (int k = 0; k < MAX_N1; ++k)
+            if (k < n1) e[k] = cmul(S[k * ZX_GS + q], __ldg(&tw[k * LANE + q]));
+        for (int p = 0; p < n1; ++p) {
+            float2 acc = make_float2(0.f, 0.f);
 #pragma unroll
             for (int k = 0; k < MAX_N1; ++k)
-                if (k < n1) e[k] = cmul(S[k * ZX_GS + q], __ldg(&tw[k * LANE + q]));
-            for (int p = 0; p < n1; ++p) {
-                float2 acc = make_float2(0.f, 0.f);
-#pragma unroll
-                for (int k = 0; k < MAX_N1; ++k)
-                    if (k < n1) cmac(acc, e[k], __ldg(&w1[k * n1 + p]));
-                const long long o = base + p * LANE + q;
-                yr[o] = acc.x;
-                if (write_imag) yi[o] = acc.y;
-            }
+                if (k < n1) cmac(acc, e[k], __ldg(&w1[k * n1 + p]));
+            const long long o = base + p * LANE + q;
+            yr[o] = acc.x;
+            if (write_imag) yi[o] = acc.y;
         }
     }
 }
@@ -462,6 +360,103 @@ dft_zx_z(const float* xr, const float* xi, float* yr, float* yi, const float4* _
     }
 }
 
+// ---------------------------------------------------------------- K7
+constexpr int MID_A_WARPS = 8;               // pass A: q values a block, one a warp
+constexpr int MID_B_COLS = 32;               // pass B: x columns a block, one transform each
+constexpr int MID_B_WARPS = MID_B_COLS / 4;  // four transforms a warp
+constexpr int MID_B_GS = LANE + 1;           // a column's stride in shared memory (odd)
+
+// pass A: the n1-point stage along y of an (nz, n1*128, nx) pair, one
+// thread a (z, q, x) column of n1 values 128 rows apart, lanes along x.
+// Forward: y[k*128 + q] = tw[k][q] * sum_p x[p*128 + q] w1[k][p] (natural
+// order in). Inverse: y[p*128 + q] = sum_k x[k*128 + q] w1[k][p] (natural
+// order out; the twiddle is pass B's); write_imag = 0 drops the imaginary
+// output. xi null reads zeros. In place is allowed: a thread reads its n1
+// values before it writes.
+template <bool INV>
+__global__ void __launch_bounds__(MID_A_WARPS * 32)
+dft_middle_a(const float* xr, const float* xi, float* yr, float* yi, const float2* __restrict__ w1,
+             const float2* __restrict__ tw, int n1, int nx, int write_imag) {
+    constexpr int QBLOCKS = LANE / MID_A_WARPS;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int xtiles = nx >> 5;
+    const long long zq = blockIdx.x / xtiles;  // z * QBLOCKS + q block
+    const long long z = zq / QBLOCKS;
+    const int q = static_cast<int>(zq % QBLOCKS) * MID_A_WARPS + warp;
+    const long long rs = static_cast<long long>(LANE) * nx;  // 128 rows
+    const long long base = z * n1 * rs + static_cast<long long>(q) * nx + (blockIdx.x % xtiles) * 32 + lane;
+    float2 v[MAX_N1];
+#pragma unroll
+    for (int p = 0; p < MAX_N1; ++p) {
+        if (p < n1) {
+            const long long o = base + p * rs;
+            v[p] = make_float2(xr[o], xi ? xi[o] : 0.f);
+        }
+    }
+    for (int k = 0; k < n1; ++k) {
+        float2 acc = make_float2(0.f, 0.f);
+#pragma unroll
+        for (int p = 0; p < MAX_N1; ++p)
+            if (p < n1) cmac(acc, v[p], __ldg(&w1[k * n1 + p]));
+        if (!INV) acc = cmul(acc, __ldg(&tw[k * LANE + q]));
+        const long long o = base + k * rs;
+        yr[o] = acc.x;
+        if (!INV || write_imag) yi[o] = acc.y;
+    }
+}
+
+// pass B's work on one tile: the 128-point FFTs of MID_B_COLS adjacent
+// columns of one 128-row group, rows base + r*nx (r < 128) of each plane,
+// staged transposed in S (MID_B_COLS * MID_B_GS float2). All MID_B_WARPS
+// warps of the block call it together; it synchronizes the block. INV
+// multiplies output q by tw_k[q]. xi null reads zeros. In place is
+// allowed: every read precedes the first barrier.
+template <bool INV>
+__device__ __forceinline__ void mid_group_tile(const float* xr, const float* xi, float* yr, float* yi,
+                                               long long base, int nx, const float2* __restrict__ tw_k,
+                                               const float2* __restrict__ w128, float2* S) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    // row r into column `lane`: at the odd stride a half-warp's stores
+    // hit 16 bank pairs
+#pragma unroll
+    for (int i = 0; i < LANE / MID_B_WARPS; ++i) {
+        const int r = warp + i * MID_B_WARPS;
+        const long long o = base + static_cast<long long>(r) * nx + lane;
+        S[lane * MID_B_GS + r] = make_float2(xr[o], xi ? xi[o] : 0.f);
+    }
+    __syncthreads();
+    // four transforms a warp, 8 lanes each; the two of a half-warp are
+    // columns c and c + 8, whose groups start 8 bank pairs apart
+    const int g = lane >> 3, pair = 2 * warp + (g >> 1);
+    const int col = (pair & 7) + 16 * (pair >> 3) + 8 * (g & 1);
+    fft128::transform<INV>(S + col * MID_B_GS, lane & 7, true, w128);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < LANE / MID_B_WARPS; ++i) {
+        const int r = warp + i * MID_B_WARPS;
+        float2 v = S[lane * MID_B_GS + r];
+        if (INV) v = cmul(v, __ldg(&tw_k[r]));
+        const long long o = base + static_cast<long long>(r) * nx + lane;
+        yr[o] = v.x;
+        yi[o] = v.y;
+    }
+}
+
+// pass B: one block a (z, group k, 32-column tile). Forward: X[k*128 + m]
+// from C[k][q] (scrambled order out). Inverse: E[k][q] = tw'[k][q] times
+// the inverse FFT of Y[k*128 + m].
+template <bool INV>
+__global__ void __launch_bounds__(MID_B_WARPS * 32)
+dft_middle_b(const float* xr, const float* xi, float* yr, float* yi, const float2* __restrict__ tw,
+             const float2* __restrict__ w128, int n1, int nx) {
+    __shared__ float2 S[MID_B_COLS * MID_B_GS];
+    const int tiles = nx / MID_B_COLS;
+    const long long zk = blockIdx.x / tiles;  // z * n1 + k
+    const int k = static_cast<int>(zk % n1);
+    const long long base = zk * LANE * nx + (blockIdx.x % tiles) * MID_B_COLS;
+    mid_group_tile<INV>(xr, xi, yr, yi, base, nx, tw + k * LANE, w128, S);
+}
+
 // ---------------------------------------------------------------- K9
 __global__ void __launch_bounds__(THREADS)
 dft_mid_conv_k(const float* xr, const float* xi, const float* hr, const float* hi, float* yr,
@@ -478,7 +473,7 @@ dft_mid_conv_k(const float* xr, const float* xi, const float* hr, const float* h
         // forward stage 2 of group k: spectrum positions k*128 + m
         for (int item = threadIdx.x; item < LANE * g.L; item += blockDim.x) {
             int m, l;
-            split_item(item, LANE, g, m, l);
+            split_item(item, g, m, l);
             float2 acc = make_float2(0.f, 0.f);
 #pragma unroll 8
             for (int q = 0; q < LANE; ++q) cmac(acc, Sk[q * g.L + l], __ldg(&w2f[q * LANE + m]));
@@ -489,7 +484,7 @@ dft_mid_conv_k(const float* xr, const float* xi, const float* hr, const float* h
         // inverse stage 2 + conjugate twiddle (1/n folded in) of group k
         for (int item = threadIdx.x; item < LANE * g.L; item += blockDim.x) {
             int q, l;
-            split_item(item, LANE, g, q, l);
+            split_item(item, g, q, l);
             float2 acc = make_float2(0.f, 0.f);
 #pragma unroll 8
             for (int m = 0; m < LANE; ++m) cmac(acc, T[m * g.L + l], __ldg(&w2i[m * LANE + q]));
@@ -506,35 +501,56 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                                 static_cast<int>(bytes));
 }
 
+// the x pass over `rows` contiguous lines: K6, and K10's x pass
+cudaError_t launch_rows(const float* xr, const float* xi, float* yr, float* yi, const float2* w1,
+                        const float2* tw, const float2* w128, long long rows, int n1, bool inverse,
+                        int write_imag, cudaStream_t s) {
+    const size_t smem = static_cast<size_t>(n1) * ZX_GS * sizeof(float2);
+    auto kernel = inverse ? dft_zx_x<true> : dft_zx_x<false>;
+    const cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<static_cast<unsigned>(rows), ZX_WARPS * 32, smem, s>>>(xr, xi, yr, yi, w1, tw, w128, n1,
+                                                                    write_imag);
+    return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
+// K6: one launch of the x pass; yi may be null when real_out drops the
+// inverse's imaginary output.
 int dft_trailing_f32(const float* xr, const float* xi, float* yr, float* yi, const void* w1,
-                     const void* tw, const void* w2, long long rows, int n1, int inverse,
-                     void* stream) {
-    auto kernel = inverse ? dft_trailing_inv : dft_trailing_fwd;
-    const size_t smem = static_cast<size_t>(TRAIL_ROWS) * n1 * LANE * sizeof(float2);
-    cudaError_t err = allow_smem(kernel, smem);
-    if (err != cudaSuccess) return err;
-    const long long blocks = (rows + TRAIL_ROWS - 1) / TRAIL_ROWS;
-    kernel<<<static_cast<unsigned>(blocks), THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-        xr, xi, yr, yi, static_cast<const float2*>(w1), static_cast<const float2*>(tw),
-        static_cast<const float2*>(w2), rows, n1);
-    return cudaGetLastError();
+                     const void* tw, const void* w128, long long rows, int n1, int inverse,
+                     int real_out, void* stream) {
+    return launch_rows(xr, xi, yr, yi, static_cast<const float2*>(w1), static_cast<const float2*>(tw),
+                       static_cast<const float2*>(w128), rows, n1, inverse != 0,
+                       (inverse && real_out) ? 0 : 1, static_cast<cudaStream_t>(stream));
 }
 
+// K7: two launches on one stream (see the note at the top). yi is
+// written in full in both directions: with real_out it is the inverse's
+// scratch.
 int dft_middle_f32(const float* xr, const float* xi, float* yr, float* yi, const void* w1,
-                   const void* tw, const void* w2, int nz, int n1, int nx, int inverse,
-                   void* stream) {
-    auto kernel = inverse ? dft_middle_inv : dft_middle_fwd;
-    const size_t smem = static_cast<size_t>(MID_TX) * n1 * LANE * sizeof(float2);
-    cudaError_t err = allow_smem(kernel, smem);
-    if (err != cudaSuccess) return err;
-    const unsigned blocks = static_cast<unsigned>(nz) * (nx / MID_TX);
-    kernel<<<blocks, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-        xr, xi, yr, yi, static_cast<const float2*>(w1), static_cast<const float2*>(tw),
-        static_cast<const float2*>(w2), n1, nx);
+                   const void* tw, const void* w128, int nz, int n1, int nx, int inverse,
+                   int real_out, void* stream) {
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const float2 *c1 = static_cast<const float2*>(w1), *ct = static_cast<const float2*>(tw),
+                 *c128 = static_cast<const float2*>(w128);
+    const unsigned blocks_a = static_cast<unsigned>(nz) * (LANE / MID_A_WARPS) * (nx / 32);
+    const unsigned blocks_b = static_cast<unsigned>(nz) * n1 * (nx / MID_B_COLS);
+    if (inverse) {
+        dft_middle_b<true><<<blocks_b, MID_B_WARPS * 32, 0, s>>>(xr, xi, yr, yi, ct, c128, n1, nx);
+        const cudaError_t err = cudaGetLastError();
+        if (err != cudaSuccess) return err;
+        dft_middle_a<true><<<blocks_a, MID_A_WARPS * 32, 0, s>>>(yr, yi, yr, yi, c1, ct, n1, nx,
+                                                                  real_out ? 0 : 1);
+    } else {
+        dft_middle_a<false><<<blocks_a, MID_A_WARPS * 32, 0, s>>>(xr, xi, yr, yi, c1, ct, n1, nx, 1);
+        const cudaError_t err = cudaGetLastError();
+        if (err != cudaSuccess) return err;
+        dft_middle_b<false><<<blocks_b, MID_B_WARPS * 32, 0, s>>>(yr, yi, yr, yi, ct, c128, n1, nx);
+    }
     return cudaGetLastError();
 }
 
@@ -563,27 +579,19 @@ int dft_zx_f32(const float* xr, const float* xi, float* yr, float* yi, const voi
     const int warps_z = (nz + ZX_KT - 1) / ZX_KT < ZX_ZWARPS ? (nz + ZX_KT - 1) / ZX_KT : ZX_ZWARPS;
     const long long rows = static_cast<long long>(nz) * ny;
     const long long plane = static_cast<long long>(ny) * n1 * LANE;
-    const size_t smem_x = static_cast<size_t>(ZX_WARPS) * n1 * ZX_GS * sizeof(float2);
     const size_t smem_z = static_cast<size_t>(nz) * ZX_COLS * sizeof(float2);
-    const unsigned blocks_x = static_cast<unsigned>((rows + ZX_WARPS - 1) / ZX_WARPS);
     const unsigned blocks_z = static_cast<unsigned>((plane + ZX_COLS - 1) / ZX_COLS);
-    auto x_pass = inverse ? dft_zx_x<true> : dft_zx_x<false>;
-    cudaError_t err = allow_smem(x_pass, smem_x);
-    if (err != cudaSuccess) return err;
-    err = allow_smem(dft_zx_z, smem_z);
+    cudaError_t err = allow_smem(dft_zx_z, smem_z);
     if (err != cudaSuccess) return err;
     if (inverse) {
         dft_zx_z<<<blocks_z, warps_z * 32, smem_z, s>>>(xr, xi, yr, yi, cz, nz, nzp, plane);
         err = cudaGetLastError();
         if (err != cudaSuccess) return err;
-        x_pass<<<blocks_x, ZX_WARPS * 32, smem_x, s>>>(yr, yi, yr, yi, c1, ct, c128, rows, n1,
-                                                       real_out ? 0 : 1);
-    } else {
-        x_pass<<<blocks_x, ZX_WARPS * 32, smem_x, s>>>(xr, xi, yr, yi, c1, ct, c128, rows, n1, 1);
-        err = cudaGetLastError();
-        if (err != cudaSuccess) return err;
-        dft_zx_z<<<blocks_z, warps_z * 32, smem_z, s>>>(yr, yi, yr, yi, cz, nz, nzp, plane);
+        return launch_rows(yr, yi, yr, yi, c1, ct, c128, rows, n1, true, real_out ? 0 : 1, s);
     }
+    err = launch_rows(xr, xi, yr, yi, c1, ct, c128, rows, n1, false, 1, s);
+    if (err != cudaSuccess) return err;
+    dft_zx_z<<<blocks_z, warps_z * 32, smem_z, s>>>(yr, yi, yr, yi, cz, nz, nzp, plane);
     return cudaGetLastError();
 }
 

@@ -2,17 +2,21 @@
 ``merfish3d_tpu/ops/pfft.py`` and of the spectrum-layout policy of
 ``merfish3d_tpu/ops/mmfft.py``).
 
-Five kernels, hand-written CUDA in ``csrc/pfft.cu``:
+Five kernels, hand-written CUDA in ``csrc/pfft.cu``; every 128-point
+stage but K9's is the radix FFT of ``csrc/fft128.cuh``:
 
-- K6 :func:`dft_trailing` — DFT along the last axis of a (rows, n) pair,
-- K7 :func:`dft_middle` — DFT along axis 1 of a (z, n, x) pair,
+- K6 :func:`dft_trailing` — DFT along the last axis of a (rows, n) pair
+  (one launch of K10's x pass, a line a block),
+- K7 :func:`dft_middle` — DFT along axis 1 of a (z, n, x) pair (two
+  launches: the n1-point stage along y with lanes along x, and the
+  128-point FFTs of 32-column tiles staged transposed),
 - K8 :func:`dft_leading` — dense DFT along axis 0 of a (n, y, x) pair,
 - K10 :func:`dft_zx` — DFT along axes 0 and 2 of a (z, y, x) pair in one
   call (an x pass whose 128-point stage is a radix FFT, then a dense z
   pass),
 - K9 :func:`dft_mid_conv` — forward y DFT, product with an OTF pair in
   the same scrambled order, inverse y DFT, in one launch (the middle pass
-  of an RLGC convolution).
+  of an RLGC convolution; its 128-point stages are still dense).
 
 Spectrum order is a function of the axis length alone, as on the TPU: a
 Cooley-Tukey length n = n1·128 (2 <= n1 <= 24, :func:`supported_ct_axis`)
@@ -141,22 +145,28 @@ def _consts_ct(n: int, inverse: bool):
 @lru_cache(maxsize=None)
 def _consts_fft128(inverse: bool) -> np.ndarray:
     """W128^j = exp(-+2πij/128), j < 128, complex64: the twiddles between
-    the 16- and 8-point factors of K10's 128-point FFT (``fft128.cuh``);
+    the 16- and 8-point factors of the 128-point FFT (``fft128.cuh``);
     no scale (the inverse's 1/n is in the Cooley-Tukey twiddle)."""
     sign = +1.0 if inverse else -1.0
     return np.exp(sign * 2j * np.pi * np.arange(_LANE) / _LANE).astype(np.complex64)
 
 
+def ct_tables(n: int, inverse: bool) -> tuple[np.ndarray, ...]:
+    """The host tables of the radix kernels (K6, K7, K10's x pass) for a
+    Cooley-Tukey length n: w1 (n1, n1) and the twiddle (n1, 128) of
+    :func:`_consts_ct`, and the 128-point FFT's twiddles (128,)."""
+    w1, tw, _ = _consts_ct(n, inverse)
+    return w1, tw, _consts_fft128(inverse)
+
+
 def zx_tables(nz: int, nx: int, inverse: bool) -> tuple[np.ndarray, ...]:
-    """The host tables K10 uploads for a (nz, ·, nx) volume: w1 (n1, n1)
-    and the Cooley-Tukey twiddle (n1, 128) of :func:`_consts_ct`, the
-    128-point FFT's twiddles (128,) and the dense z table, symmetric,
-    stored as (nz, nzp) with nzp = nz rounded up to a multiple of 8 and
-    zeros past nz (the z pass reads 8 outputs' entries as aligned pairs)."""
-    w1, tw, _ = _consts_ct(nx, inverse)
+    """The host tables K10 uploads for a (nz, ·, nx) volume: those of
+    :func:`ct_tables` for nx, and the dense z table, symmetric, stored as
+    (nz, nzp) with nzp = nz rounded up to a multiple of 8 and zeros past
+    nz (the z pass reads 8 outputs' entries as aligned pairs)."""
     wz = np.zeros((nz, -(-nz // 8) * 8), np.complex64)
     wz[:, :nz] = _consts_dense(nz, inverse)
-    return w1, tw, _consts_fft128(inverse), wz
+    return (*ct_tables(nx, inverse), wz)
 
 
 @lru_cache(maxsize=None)
@@ -173,14 +183,16 @@ _device_consts: dict = {}
 
 
 def _on_device(kind: str, n, inverse: bool, device) -> tuple[torch.Tensor, ...]:
-    """The constant tables of ``kind`` ("ct" or "dense" for a length n,
-    "zx" for n = (nz, nx)) as complex64 tensors on ``device``
-    (interleaved (re, im) float pairs, as the kernels read them), uploaded
-    once."""
+    """The constant tables of ``kind`` ("ct" (K9), "radix" (K6, K7) or
+    "dense" for a length n, "zx" for n = (nz, nx)) as complex64 tensors
+    on ``device`` (interleaved (re, im) float pairs, as the kernels read
+    them), uploaded once."""
     key = (kind, n, inverse, str(device))
     if key not in _device_consts:
         if kind == "ct":
             tables = _consts_ct(n, inverse)
+        elif kind == "radix":
+            tables = ct_tables(n, inverse)
         elif kind == "zx":
             tables = zx_tables(*n, inverse)
         else:
@@ -275,30 +287,36 @@ def dft_trailing_cuda(xr, xi=None, *, inverse=False, real_output=False):
     rows, n = xr.shape
     if not supported_ct_axis(n):
         raise ValueError(f"dft_trailing: length {n} is not n1*128 with 2 <= n1 <= 24")
-    w1, tw, w2 = _on_device("ct", n, bool(inverse), xr.device)
+    w1, tw, w128 = _on_device("radix", n, bool(inverse), xr.device)
     yr, yi = _outputs(xr, inverse and real_output)
     status = _build.kernels().dft_trailing_f32(
         xr.data_ptr(), _ptr(xi), yr.data_ptr(), _ptr(yi), w1.data_ptr(), tw.data_ptr(),
-        w2.data_ptr(), rows, n // _LANE, int(bool(inverse)), _build.stream_handle(xr.device),
+        w128.data_ptr(), rows, n // _LANE, int(bool(inverse)), int(bool(real_output)),
+        _build.stream_handle(xr.device),
     )
     _launched(status, "dft_trailing")
     return yr, yi
 
 
 def dft_middle_cuda(xr, xi=None, *, inverse=False, real_output=False):
-    """K7 on CUDA tensors; same contract as :func:`dft_middle`."""
+    """K7 on CUDA tensors; same contract as :func:`dft_middle`. One call
+    is two launches (the n1-point pass, then the 128-point FFTs in place;
+    inverse: the FFTs, then the synthesis in place), counted once."""
     _check_pair(xr, xi, 3, "dft_middle")
     nz, n, nx = xr.shape
     if not supported_ct_axis(n) or nx % _LANE != 0:
         raise ValueError(f"dft_middle: shape {tuple(xr.shape)} needs n1*128 on axis 1, x % 128 == 0")
-    w1, tw, w2 = _on_device("ct", n, bool(inverse), xr.device)
-    yr, yi = _outputs(xr, inverse and real_output)
+    w1, tw, w128 = _on_device("radix", n, bool(inverse), xr.device)
+    # the inverse's intermediate is complex: yi is its scratch when only
+    # the real output is kept
+    yr, yi = _outputs(xr, False)
     status = _build.kernels().dft_middle_f32(
-        xr.data_ptr(), _ptr(xi), yr.data_ptr(), _ptr(yi), w1.data_ptr(), tw.data_ptr(),
-        w2.data_ptr(), nz, n // _LANE, nx, int(bool(inverse)), _build.stream_handle(xr.device),
+        xr.data_ptr(), _ptr(xi), yr.data_ptr(), yi.data_ptr(), w1.data_ptr(), tw.data_ptr(),
+        w128.data_ptr(), nz, n // _LANE, nx, int(bool(inverse)), int(bool(inverse and real_output)),
+        _build.stream_handle(xr.device),
     )
     _launched(status, "dft_middle")
-    return yr, yi
+    return yr, (None if (inverse and real_output) else yi)
 
 
 def dft_leading_cuda(xr, xi=None, *, inverse=False, real_output=False):

@@ -48,7 +48,20 @@ instead solves the smoke's camera frame ((32, 2048, 2048), padded to (48,
 ways — through the kernels, through their plain versions (cuFFT, float32)
 and through the plain versions with complex128 transforms — for 1 and 10
 iterations, and prints how far each pair differs: the floor of the
-camera-frame solve limits in ``chip_smoke.py``.
+camera-frame solve limits in ``chip_smoke.py``. Then it profiles the
+kernels' solve for 2 iterations: device time by kernel (K6, K7's two
+passes, K8, K4, K5, copies, the rest) and the device busy share.
+
+    python3 profile_decode.py --camera-pair
+
+instead times the camera geometry alone: the smoke's bead pair through
+``register_pair_to_fixed`` twice (the first run also uploads constants
+and plans ``torch.fft``), the camera frame's solve through the kernels,
+and K6, K7 and K8 at the frame's shapes against their plain versions. It
+calls only ``chip_smoke`` functions that predate K6's and K7's radix
+designs, so a copy of this file in a checkout of an older commit times
+that commit: run both checkouts in one call, in turns, to compare them on
+one card.
 
     python3 profile_decode.py --ufish
 
@@ -142,6 +155,22 @@ def device_busy_seconds(events) -> float:
     return busy * 1e-6
 
 
+def device_rows(events, table, other: str) -> tuple[dict, dict]:
+    """Device ms and launches of each row of ``table`` ((name fragment,
+    label) pairs, the first match wins; ``other`` for the rest)."""
+    from torch.autograd import DeviceType
+
+    rows: dict = collections.defaultdict(float)
+    calls: dict = collections.defaultdict(int)
+    for e in events:
+        if e.device_type != DeviceType.CUDA:
+            continue
+        label = next((lab for frag, lab in table if frag in e.name), other)
+        rows[label] += (e.time_range.end - e.time_range.start) * 1e-3
+        calls[label] += 1
+    return rows, calls
+
+
 def profile_registration(raw) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -201,17 +230,9 @@ def profile_decon(raw) -> None:
     log(f"decon of 8 readout bits (32, 1152, 1152) padded, paired: {wall:.4f} s, iterations "
         f"{iters} ({n_iter} volume-iterations, {1e3 * wall / n_iter:.3f} ms each); device busy "
         f"{busy:.4f} s = {busy / wall:.4f} of the wall")
-    rows: dict = collections.defaultdict(float)
-    calls: dict = collections.defaultdict(int)
-    dtoh = 0
-    for e in events:
-        if e.device_type != DeviceType.CUDA:
-            continue
-        label = next((lab for frag, lab in DECON_KERNELS if frag in e.name),
-                     "other elementwise and reduction ops (split sampler included)")
-        rows[label] += (e.time_range.end - e.time_range.start) * 1e-3
-        calls[label] += 1
-        dtoh += "DtoH" in e.name
+    rows, calls = device_rows(events, DECON_KERNELS,
+                              "other elementwise and reduction ops (split sampler included)")
+    dtoh = sum(e.device_type == DeviceType.CUDA and "DtoH" in e.name for e in events)
     for label, ms in sorted(rows.items(), key=lambda kv: -kv[1]):
         log(f"  {label:64s} {ms:10.3f} ms  {calls[label]:6d} launches  "
             f"{ms / n_iter:8.3f} ms a volume-iteration")
@@ -244,7 +265,6 @@ def profile_ufish(raw) -> None:
     from pathlib import Path
 
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     log = chip_smoke.log
@@ -263,15 +283,7 @@ def profile_ufish(raw) -> None:
     n = planes.shape[0]
     log(f"c32 U-FISH over {n} planes of 1024^2 (8-plane batches): {wall:.4f} s, {n / wall:.2f} planes/s; "
         f"device busy {busy:.4f} s = {busy / wall:.4f} of the wall")
-    rows: dict = collections.defaultdict(float)
-    calls: dict = collections.defaultdict(int)
-    for e in events:
-        if e.device_type != DeviceType.CUDA:
-            continue
-        label = next((lab for frag, lab in UFISH_KERNELS if frag in e.name),
-                     "other elementwise ops (normalization arithmetic)")
-        rows[label] += (e.time_range.end - e.time_range.start) * 1e-3
-        calls[label] += 1
+    rows, calls = device_rows(events, UFISH_KERNELS, "other elementwise ops (normalization arithmetic)")
     total = sum(rows.values())
     for label, ms in sorted(rows.items(), key=lambda kv: -kv[1]):
         log(f"  {label:52s} {ms:10.3f} ms  {calls[label]:6d} launches  {100 * ms / total:6.2f} % of device time")
@@ -324,11 +336,47 @@ def f64_transforms():
         pfft.axis_plain = saved
 
 
+# device kernels by name fragment -> row of the camera-frame breakdown
+CAMERA_KERNELS = (
+    ("dft_zx_x", "K6 dft_trailing (dft_zx_x, a line a block)"),
+    ("dft_middle_a", "K7 dft_middle pass A (dft_middle_a, n1-point stage)"),
+    ("dft_middle_b", "K7 dft_middle pass B (dft_middle_b, 128-point FFTs)"),
+    ("dft_leading", "K8 dft_leading"),
+    ("ratio_kld", "K4 ratio_kld"),
+    ("update_select", "K5 update_select"),
+    ("Memcpy", "copies"),
+    ("Memset", "copies"),
+)
+
+
+def camera_breakdown(image, psf, iters: int = 2) -> None:
+    """Device time of the camera frame's solve through the kernels by
+    kernel (``torch.profiler``), per iteration: K6, K7's two passes, K8,
+    K4, K5, copies and the rest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    log = chip_smoke.log
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    run = chip_smoke.camera_frame_route(image, psf, plain=False, max_iters=iters, context=lambda: prof)
+    events = prof.events()
+    busy = device_busy_seconds(events)
+    n = sum(run["iterations"])
+    log(f"camera frame through the kernels, {n} iteration(s) profiled: {run['seconds']:.3f} s, device "
+        f"busy {busy:.4f} s = {busy / run['seconds']:.4f} of the wall")
+    rows, calls = device_rows(events, CAMERA_KERNELS,
+                              "other elementwise and reduction ops (split sampler, padding, OTF)")
+    total = sum(rows.values())
+    for label, ms in sorted(rows.items(), key=lambda kv: -kv[1]):
+        log(f"  {label:66s} {ms:10.3f} ms  {calls[label]:6d} launches  {ms / n:9.3f} ms an iteration  "
+            f"{100 * ms / total:6.2f} % of device time")
+
+
 def camera_routes(raw) -> None:
     """The smoke's camera frame solved three ways from one seed: through
     the kernels, through the plain versions (cuFFT, float32) and through
     the plain versions with complex128 transforms, for 1 and 10
-    iterations: how far each pair differs."""
+    iterations: how far each pair differs; then the kernels' solve's
+    device time by kernel (:func:`camera_breakdown`)."""
     import torch
 
     log = chip_smoke.log
@@ -351,6 +399,26 @@ def camera_routes(raw) -> None:
             log(f"  {a} vs {b}: max |delta| / max |recon| {max_rel:.3e}, ||delta|| / ||recon|| {l2_rel:.3e}")
         del runs
         torch.cuda.empty_cache()
+    camera_breakdown(image, psf)
+
+
+def camera_pair_times(raw) -> None:
+    """The camera geometry alone (see the module note): pair registration
+    walls, the frame's solve through the kernels, K6/K7/K8 at the frame."""
+    import torch
+
+    log = chip_smoke.log
+    fixed, moving = chip_smoke.camera_pair()
+    for run in ("first", "second"):
+        res = chip_smoke.camera_case(fixed, moving)
+        log(f"camera pair registration, {run} run: {res['seconds']:.4f} s (residual {res['residual_px']:.3f} px)")
+    frame = torch.as_tensor(fixed, device="cuda").to(torch.float32)
+    del fixed, moving
+    psf = chip_smoke.production_psf(raw)
+    run = chip_smoke.camera_frame_route(frame, psf, plain=False)
+    log(f"camera frame through the kernels: {run['seconds']:.4f} s, iterations {run['iterations']}")
+    torch.cuda.empty_cache()
+    chip_smoke.check_camera_frame_dft(frame, psf)
 
 
 def main() -> int:
@@ -376,6 +444,9 @@ def main() -> int:
         return 0
     if "--camera-routes" in sys.argv[1:]:
         camera_routes(raw)
+        return 0
+    if "--camera-pair" in sys.argv[1:]:
+        camera_pair_times(raw)
         return 0
     profile_registration(raw)
     profile_decon(raw)

@@ -160,9 +160,13 @@ def _assert_pair_close(got, want, scale):
 
 _DFT_CASES = [
     ("dft_trailing", (6 * 40 + 1, 384)),  # ragged row block
-    ("dft_trailing", (16, 3072)),  # n1 = 24
+    ("dft_trailing", (4 * 40 + 3, 2176)),  # n1 = 17 (the camera frame), rows not a multiple of 4
+    ("dft_trailing", (64, 1920)),  # n1 = 15 (the camera crop)
+    ("dft_trailing", (16, 3072)),  # n1 = 24, the longest line
     ("dft_middle", (3, 256, 384)),
-    ("dft_middle", (2, 3072, 128)),  # the largest slab, 192 KB of shared memory
+    ("dft_middle", (2, 2176, 256)),  # n1 = 17 (the camera frame), eight 32-column tiles
+    ("dft_middle", (3, 896, 384)),  # n1 = 7 (the production crop), x = 3 * 128
+    ("dft_middle", (2, 3072, 128)),  # n1 = 24, the most values a pass-A thread holds
     ("dft_leading", (96, 8, 136)),
     ("dft_leading", (5, 16, 128)),
     ("dft_zx", (16, 24, 896)),  # the production crop's plane

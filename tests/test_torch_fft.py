@@ -160,6 +160,30 @@ def test_spectrum_order_matches_tpu_dispatch(tpu_dispatch, shape):
         np.testing.assert_array_equal(tfft.spectrum_freqs(n), jfft.spectrum_freqs(n))
 
 
+def test_per_axis_route_matches_reference_layout():
+    """A volume past K10's byte gate with y = 2*128 takes K6, K7 and K8 in
+    turn (the camera frame's route). Its spectrum is the natural DFT
+    permuted along each axis by the reference's own layout
+    (``mmfft.scramble_perm``), and its inverses return the input. (The
+    TPU dispatch in interpret mode takes over 30 s at any such shape.)"""
+    shape = (96, 256, 640)
+    assert not tpfft.zx_supported(shape) and not jpfft.zx_supported(shape)
+    assert all(tpfft.axis_supported(shape, ax) for ax in range(3))
+    xr, xi = _pair(shape, seed=6)
+    want = np.fft.fftn(xr.astype(np.float64))
+    for ax, n in enumerate(shape):
+        want = np.take(want, jmm.scramble_perm(n), axis=ax)
+    got = tfft.fftn_spec(_t(xr))
+    _close(got[0], want.real, np.abs(want).max())
+    _close(got[1], want.imag, np.abs(want).max())
+    back = tfft.ifftn_spec(*got)
+    _close(back[0], xr, np.abs(xr).max())
+    _close(back[1], np.zeros_like(xr), np.abs(xr).max())
+    real_only = tfft.ifftn_spec(*got, real_output=True)
+    assert real_only[1] is None
+    _close(real_only[0], xr, np.abs(xr).max())
+
+
 def test_roundtrip_and_natural_pairs():
     xr, xi = _pair((16, 128, 256), seed=4)
     fr, fi = tfft.fftn_spec(_t(xr), _t(xi))
@@ -174,10 +198,11 @@ def test_roundtrip_and_natural_pairs():
     np.testing.assert_allclose(back[0].numpy(), xr, atol=2e-5 * np.abs(xr).max())
 
 
-# --------------------------------------- K10's radix factorization, modelled
-# A numpy model of csrc/pfft.cu's dft_zx_x / dft_zx_z and csrc/fft128.cuh,
-# index for index and driven by the tables the wrapper uploads
-# (tpfft.zx_tables), so an index or table error in the design shows on CPU.
+# ------------------------ the radix factorizations of K6, K7 and K10, modelled
+# A numpy model of csrc/pfft.cu's dft_zx_x (K6, K10's x pass), dft_zx_z,
+# dft_middle_a / dft_middle_b (K7) and csrc/fft128.cuh, index for index and
+# driven by the tables the wrappers upload (tpfft.ct_tables,
+# tpfft.zx_tables), so an index or table error in the design shows on CPU.
 # Its butterfly constants are the header's.
 _R2, _C8, _S8 = np.float32(0.70710678118654752), np.float32(0.92387953251128676), \
     np.float32(0.38268343236508977)
@@ -240,23 +265,37 @@ def _fft128_model(C, w128, inv):
     return x.swapaxes(-1, -2).reshape(C.shape)  # position k1 + 16*k2
 
 
-def _dft_zx_model(x, inverse):
-    """K10 as the two launches run it: forward x pass (stage 1 with w1 and
-    the twiddle, the 128-point FFTs) then the dense z pass, which reads
-    the symmetric z table by rows (W[j][k] for output k); the inverse z
-    pass, then the FFTs, the twiddle and the n1-point synthesis."""
-    nz, ny, n = x.shape
-    n1 = n // 128
-    w1, tw, w128, wz = (t.astype(np.complex128) if t.ndim > 1 else t
-                        for t in tpfft.zx_tables(nz, n, inverse))
-    assert wz.shape == (nz, -(-nz // 8) * 8) and not wz[:, nz:].any()
+def _c128(tables):
+    """The uploaded tables in double precision, except W128 (the model
+    multiplies by its complex64 entries, as the kernel does)."""
+    return tuple(t.astype(np.complex128) if t.ndim > 1 else t for t in tables)
+
+
+def _rows_model(x, tables, inverse):
+    """The x pass (dft_zx_x: K6, K10's x pass) on the last axis: forward
+    stage 1 with w1 and the twiddle, then the 128-point FFTs (scrambled
+    out); inverse the FFTs, the twiddle, the n1-point synthesis."""
+    w1, tw, w128 = _c128(tables)
+    *lead, n = x.shape
+    x = x.reshape(*lead, n // 128, 128)
     if not inverse:
-        c = np.einsum("zypq,kp->zykq", x.reshape(nz, ny, n1, 128), w1) * tw
-        y = _fft128_model(c, w128, False).reshape(nz, ny, n)
-        return np.einsum("jk,jyx->kyx", wz[:, :nz], y)
-    z = np.einsum("jk,jyx->kyx", wz[:, :nz], x).reshape(nz, ny, n1, 128)
-    e = _fft128_model(z, w128, True) * tw
-    return np.einsum("zykq,kp->zypq", e, w1).reshape(nz, ny, n)
+        c = np.einsum("...pq,kp->...kq", x, w1) * tw
+        return _fft128_model(c, w128, False).reshape(*lead, n)
+    e = _fft128_model(x, w128, True) * tw
+    return np.einsum("...kq,kp->...pq", e, w1).reshape(*lead, n)
+
+
+def _dft_zx_model(x, inverse):
+    """K10 as the two launches run it: forward x pass then the dense z
+    pass, which reads the symmetric z table by rows (W[j][k] for output
+    k); inverse the z pass, then the x pass."""
+    nz, ny, n = x.shape
+    *tables, wz = tpfft.zx_tables(nz, n, inverse)
+    assert wz.shape == (nz, -(-nz // 8) * 8) and not wz[:, nz:].any()
+    wz = wz[:, :nz].astype(np.complex128)
+    if not inverse:
+        return np.einsum("jk,jyx->kyx", wz, _rows_model(x, tables, False))
+    return _rows_model(np.einsum("jk,jyx->kyx", wz, x), tables, True)
 
 
 @pytest.mark.parametrize("nz", [16, 27, 32])
@@ -276,3 +315,117 @@ def test_k10_factorization_model_matches_plain(n1, nz):
     scale = max(float(back[0].abs().max()), float(back[1].abs().max()))
     np.testing.assert_allclose(got.real, back[0].numpy(), rtol=0, atol=1e-5 * scale)
     np.testing.assert_allclose(got.imag, back[1].numpy(), rtol=0, atol=1e-5 * scale)
+
+
+def _pair_model_check(got, want):
+    """The model within 1e-5 x max|X| of a plain (yr, yi): the radix FFT is
+    held to a tighter limit than the card's 3e-5."""
+    scale = max(float(w.abs().max()) for w in want if w is not None)
+    np.testing.assert_allclose(got.real, want[0].numpy(), rtol=0, atol=1e-5 * scale)
+    if want[1] is not None:
+        np.testing.assert_allclose(got.imag, want[1].numpy(), rtol=0, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("real", [False, True])
+@pytest.mark.parametrize("n1", [2, 15, 17, 24])
+def test_k6_rows_model_matches_plain(n1, real):
+    """K6 is one launch of the x pass: the model, forward (real input when
+    ``real``) and inverse (real output when ``real``), at dft_trailing_plain."""
+    n = 128 * n1
+    xr, xi = _pair((3, n), seed=n1 * 10 + real)
+    fwd_in = xr.astype(np.float64) + (0 if real else 1j * xi)
+    want = tpfft.dft_trailing_plain(_t(xr), None if real else _t(xi))
+    _pair_model_check(_rows_model(fwd_in, tpfft.ct_tables(n, False), False), want)
+    back = tpfft.dft_trailing_plain(_t(xr), _t(xi), inverse=True, real_output=real)
+    assert (back[1] is None) == real
+    got = _rows_model(xr.astype(np.float64) + 1j * xi, tpfft.ct_tables(n, True), True)
+    _pair_model_check(got, back)
+
+
+def _mid_b_columns():
+    """mid_group_tile's map: the tile column whose 128-point FFT the 8 lanes
+    of group g (of 4) of warp w (of 8) run, as an (8, 4) array."""
+    warp, g = np.meshgrid(np.arange(8), np.arange(4), indexing="ij")
+    pair = 2 * warp + (g >> 1)
+    return (pair & 7) + 16 * (pair >> 3) + 8 * (g & 1)
+
+
+def _mid_pass_a(x, w1, tw, inverse):
+    """dft_middle_a on (nz, n1, 128, nx): the n1-point stage of every
+    (z, q, x) column; forward with the twiddle."""
+    if not inverse:
+        return np.einsum("zpqx,kp->zkqx", x, w1) * tw[None, :, :, None]
+    return np.einsum("zkqx,kp->zpqx", x, w1)
+
+
+def _mid_pass_b(y, w128, tw, inverse):
+    """dft_middle_b on (nz, n1, 128, nx): each 32-column tile of each
+    group k staged transposed, the FFT of column c run by the lanes the
+    map gives it; inverse with the twiddle on the way out. Every tile
+    column the map misses stays NaN."""
+    cols = _mid_b_columns().ravel()
+    out = np.full_like(y, np.nan)
+    for x0 in range(0, y.shape[-1], 32):
+        S = y[..., x0:x0 + 32].swapaxes(-1, -2)  # (nz, n1, column, q)
+        T = np.full_like(S, np.nan)
+        T[..., cols, :] = _fft128_model(S[..., cols, :], w128, inverse)
+        if inverse:
+            T = T * tw[None, :, None, :]
+        out[..., x0:x0 + 32] = T.swapaxes(-1, -2)
+    return out
+
+
+def _dft_middle_model(x, inverse):
+    """K7 as its two launches run it along axis 1 of (nz, n, nx): forward
+    pass A then pass B in place; inverse pass B then pass A in place."""
+    nz, n, nx = x.shape
+    w1, tw, w128 = _c128(tpfft.ct_tables(n, inverse))
+    x = x.reshape(nz, n // 128, 128, nx)
+    if not inverse:
+        y = _mid_pass_b(_mid_pass_a(x, w1, tw, False), w128, tw, False)
+    else:
+        y = _mid_pass_a(_mid_pass_b(x, w128, tw, True), w1, tw, True)
+    return y.reshape(nz, n, nx)
+
+
+@pytest.mark.parametrize("n1", [2, 7, 17, 24])
+def test_k7_passes_model_matches_plain(n1):
+    """The model of K7's passes, forward (scrambled y out) and inverse
+    (natural out), at dft_middle_plain within 1e-5 x max|X|."""
+    xr, xi = _pair((2, 128 * n1, 64), seed=n1)
+    x = xr.astype(np.float64) + 1j * xi
+    _pair_model_check(_dft_middle_model(x, False), tpfft.dft_middle_plain(_t(xr), _t(xi)))
+    _pair_model_check(_dft_middle_model(x, True),
+                      tpfft.dft_middle_plain(_t(xr), _t(xi), inverse=True))
+
+
+def test_k7_pass_b_shared_memory_is_conflict_free():
+    """mid_group_tile's shared-memory addresses (a column every 129 float2):
+    the row-wise staging stores and final loads, and fft128::transform's
+    four access phases on the columns the map gives each group of 8 lanes.
+    Every half-warp's 16 float2 accesses fall in 16 distinct bank pairs
+    (address mod 16), and the map covers each of the 32 columns once."""
+    gs = 129
+    cols = _mid_b_columns()
+    assert sorted(cols.ravel().tolist()) == list(range(32))
+    lanes = np.arange(32)
+    t = lanes & 7
+
+    def conflict_free(addr):
+        for h in (0, 16):
+            assert len(set((addr[h:h + 16] % 16).tolist())) == 16, addr
+
+    for r in range(128):  # lane = column, one row a warp access
+        conflict_free(lanes * gs + r)
+    for warp in range(8):
+        base = cols[warp][lanes >> 3] * gs
+        for a in range(16):  # loads x[8a + t]
+            conflict_free(base + 8 * a + t)
+        for k1 in range(16):  # exchange stores, XOR-swizzled
+            conflict_free(base + 8 * k1 + (t ^ (k1 & 7)))
+        for b in range(8):  # exchange loads of k1 = t and t + 8
+            conflict_free(base + 8 * t + (b ^ t))
+            conflict_free(base + 8 * (t + 8) + (b ^ t))
+        for k2 in range(8):  # outputs X[k1 + 16 k2]
+            conflict_free(base + t + 16 * k2)
+            conflict_free(base + t + 8 + 16 * k2)
