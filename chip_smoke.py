@@ -17,8 +17,10 @@ Run from the root of a checkout. Phases, each raising on failure:
    admits; K10, K9, K4 and K5 on the first RLGC iteration of a production
    readout bit padded to (32, 1152, 1152)), with timings (CUDA events), the
    bound of each and the time of one ``torch`` call or composition
-   computing the same function (K7's and K10's two passes also apart,
-   by the profiler); K11 at each distinct convolution of one
+   computing the same function (K7's and K10's two passes, K9's three
+   and the kernel of K8's route also apart, by the profiler; K8 also at
+   the largest length it takes, 96, checked only); K11 at each distinct
+   convolution of one
    8-plane batch of the production tile through a full-width c32
    ConvTranspose U-FISH network (seeded weights), on the activations that
    batch gives each layer, with the weights packed as the network holds
@@ -58,7 +60,12 @@ production bit is solved twice more, through the kernels and through
 their plain versions, from the same generator seed, and so is one camera
 frame (the pair's fixed volume, padded to (48, 2176, 2176): K6, K7 and K8
 in every convolution): each pair must agree, with equal iterations; K6,
-K7 and K8 are then checked and timed at that frame's shapes.
+K7 and K8 are then checked and timed at that frame's shapes. Last, the
+same frame tiled at ``chunked_rlgc``'s default crop (``auto_crop_yx``,
+1024: four tiles, each padded to (48, 1152, 1152), K10 and K9 in every
+convolution) is solved through the kernels and through the plain
+versions: equal iterations in every tile, and the camera-frame limits
+over the whole frame and over a band of +-halo voxels around every seam.
 The last lines are the kernel table as JSON and the result line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 without a CUDA device or outside a checkout.
@@ -124,6 +131,9 @@ SOLVE_L2_RTOL = 5e-3
 # Equal iteration counts are required, and about 4x that floor.
 CAMERA_SOLVE_MAX_RTOL = 5e-2
 CAMERA_SOLVE_L2_RTOL = 2.5e-2
+# the crop auto_crop_yx picks for the camera frame under the reference's
+# padded-voxel budget (ROADMAP.md, port faults)
+CAMERA_DEFAULT_CROP = 1024
 PRODUCTION_DECON_ITERS = 10
 # DataRegistration's options for the repo's trained c8 U-FISH checkpoint,
 # as tests/f1_matrix_common.py passes them
@@ -365,32 +375,37 @@ def _dft_flops(shape, axes, real_input: bool) -> float:
 
 # every DFT timing of the run (forward and inverse), for the summary
 DFT_TIMES: list[dict] = []
-# the DFT wrappers whose call is two launches: each pass is timed apart
-TWO_PASS_DFTS = ("dft_middle_cuda", "dft_zx_cuda")
+# the DFT wrappers whose kernels the profiler times apart: K7's and K10's
+# two passes, and the kernel K8's route launches
+PROFILED_DFTS = ("dft_middle_cuda", "dft_zx_cuda", "dft_leading_cuda")
 
 
-def device_ms_by_kernel(fn, reps: int = 5) -> dict:
+def device_ms_by_kernel(fn, reps: int = 5, tries: int = 3) -> dict:
     """Device ms of one launch of each kernel ``fn()`` runs, by its symbol:
     the mean over the launches ``torch.profiler`` recorded in ``reps``
     calls, after a warm-up call (a call that launches each kernel once, as
-    the DFT wrappers do, then takes their sum)."""
+    the DFT wrappers do, then takes their sum). A profiling window that
+    recorded no device event is taken again, up to ``tries`` windows."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     total: dict = {}
     count: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            name = re.sub(r"^void |\(anonymous namespace\)::", "", e.name).split("(")[0]
-            total[name] = total.get(name, 0.0) + (e.time_range.end - e.time_range.start) * 1e-3
-            count[name] = count.get(name, 0) + 1
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                name = re.sub(r"^void |\(anonymous namespace\)::", "", e.name).split("(")[0]
+                total[name] = total.get(name, 0.0) + (e.time_range.end - e.time_range.start) * 1e-3
+                count[name] = count.get(name, 0) + 1
+        if total:
+            break
     return {name: ms / count[name] for name, ms in total.items()}
 
 
@@ -431,7 +446,7 @@ def check_dft(name, kernel, plain, library, xr, xi, axes, replaces):
         f"bound {b['bound_ms']:.3f} ms ({b['bound_by']}); inverse kernel {inv_ms:.3f} ms, "
         f"plain {inv_plain_ms:.3f} ms")
     passes = {}
-    if kernel.__name__ in TWO_PASS_DFTS:
+    if kernel.__name__ in PROFILED_DFTS:
         passes = {"forward": device_ms_by_kernel(lambda: kernel(xr, xi)),
                   "inverse": device_ms_by_kernel(lambda: kernel(*fp, inverse=True))}
         for way, split in passes.items():
@@ -449,7 +464,8 @@ def check_dft_kernels(raw, camera_fixed) -> list[dict]:
     """The four DFT kernels at the main path's inputs: K10 then K7 on the
     (16, 896, 896) stage-2 crop of a production fiducial round; K6, K7,
     K8 in turn on the (32, 1920, 1920) crop of the camera pair; K10 at
-    the largest (z, x) plane its gate admits.
+    the largest (z, x) plane its gate admits and K8 at the largest length
+    it takes (random complex input, checked only).
 
     Each crop is checked less its mean. With the mean in, max|X| is the
     DC bin (~40 counts x 12.85 M voxels), and DFT_RTOL x max|X| would be
@@ -515,6 +531,16 @@ def check_dft_kernels(raw, camera_fixed) -> list[dict]:
     check_dft("dft_zx (K10)", pfft.dft_zx_cuda, pfft.dft_zx_plain,
               lambda z: torch.fft.fftn(z, dim=(0, 2)), big, None, (2, 0),
               "merfish3d_tpu/ops/pfft.py:660")
+    del big
+    # K8 at the largest length it takes, through the kernel its route names
+    n = 96
+    require(pfft.supported_dense_axis(n) and not pfft.supported_dense_axis(n + 1), "K8's largest length")
+    log(f"K8 at the largest admitted length {n}: the {pfft.leading_route(n)} route")
+    gen = np.random.default_rng(1)
+    xr, xi = (torch.as_tensor(gen.standard_normal((n, 256, 1024)).astype(np.float32), device=dev)
+              for _ in range(2))
+    check_dft("dft_leading (K8)", pfft.dft_leading_cuda, pfft.dft_leading_plain, lambda z: fft(z, dim=0),
+              xr, xi, (0,), "merfish3d_tpu/ops/pfft.py:469")
     return rows
 
 
@@ -583,9 +609,15 @@ def check_rlgc_kernels(raw) -> list[dict]:
     log(f"  time: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, torch.fft composition (fft along "
         f"y, product, ifft; no single call computes K9) {library_ms:.3f} ms, bound "
         f"{b['bound_ms']:.3f} ms ({b['bound_by']})")
+    # its three launches by symbol: dft_middle_a<false>, dft_mid_conv_b, dft_middle_a<true>
+    passes = device_ms_by_kernel(lambda: pfft.dft_mid_conv_cuda(*spec, hr, hi))
+    log("  passes (profiler): " + ", ".join(f"{k} {v:.3f} ms" for k, v in passes.items()))
     rows.append(dict(name="dft_mid_conv (K9)", route="cuda", source="merfish3d_tpu_torch/csrc/pfft.cu",
                      replaces="merfish3d_tpu/ops/pfft.py:536", max_abs_err=err, ms=ms,
                      plain_ms=plain_ms, **b, library_ms=library_ms))
+    DFT_TIMES.append(dict(name="dft_mid_conv (K9)", shape=list(shape), real_input=False, ms=ms,
+                          plain_ms=plain_ms, library_ms=library_ms, bound_ms=b["bound_ms"],
+                          max_rel_err=err / scale, passes_ms={"forward": passes}))
     del spec, centered
 
     # the first iteration of the bit's solve (its pipeline seed, 7)
@@ -1150,41 +1182,60 @@ def fiducial_decon_case(raw) -> dict:
             "peak_device_bytes": int(torch.cuda.max_memory_allocated())}
 
 
-def camera_frame_route(image, psf, *, plain: bool, max_iters: int = PRODUCTION_DECON_ITERS,
-                       context=contextlib.nullcontext) -> dict:
-    """One camera frame (a (32, 2048, 2048) volume as an image)
-    deconvolved through ``chunked_rlgc`` with ``psf``, seed 7, in one tile
-    (``crop_yx=2048``: it pads to (48, 2176, 2176), past K10's gate, so
-    every convolution composes K6, K7 and K8), through the kernels or
-    their plain versions, inside ``context()``: the recon, iteration
-    counts, wall, peak device memory and kernel launches."""
-    import torch
-
-    from merfish3d_tpu_torch.ops import pfft, rlgc
+def kernel_counts() -> dict:
+    """Every DFT and RLGC kernel's launch count, and K8's by route."""
+    from merfish3d_tpu_torch.ops import pfft
     from merfish3d_tpu_torch.ops import rlgc_kernels as rk
 
-    launched = lambda: sum(pfft.launch_count.values()) + sum(rk.launch_count.values())  # noqa: E731
-    core = rlgc._rlgc_core
-    iters = []
+    return {**pfft.launch_count, **{f"dft_leading[{k}]": v for k, v in pfft.leading_route_count.items()},
+            **rk.launch_count}
 
-    def recorded(*args, **kwargs):
-        recon, n = core(*args, **kwargs)
-        iters.append(int(n))
+
+def camera_frame_route(image, psf, *, plain: bool, crop_yx=2048, max_iters: int = PRODUCTION_DECON_ITERS,
+                       context=contextlib.nullcontext) -> dict:
+    """One camera frame (a (32, 2048, 2048) volume as an image)
+    deconvolved through ``chunked_rlgc`` with ``psf``, seed 7, through the
+    kernels or their plain versions, inside ``context()``. By default in
+    one tile (``crop_yx=2048``: it pads to (48, 2176, 2176), past K10's
+    gate, so every convolution composes K6, K7 and K8); ``crop_yx=None``
+    tiles it at ``chunked_rlgc``'s default crop. Returns the recon, the
+    iteration counts, the wall, peak device memory, kernel launches, and
+    for each tile its padded shape, iterations, wall and the launches of
+    each kernel it took."""
+    import torch
+
+    from merfish3d_tpu_torch.ops import rlgc
+
+    core = rlgc._rlgc_core
+    tiles = []
+
+    def recorded(observed, *args, **kwargs):
+        before = kernel_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        recon, n = core(observed, *args, **kwargs)
+        torch.cuda.synchronize()
+        after = kernel_counts()
+        tiles.append(dict(padded_shape=list(observed.shape), iterations=int(n),
+                          seconds=time.perf_counter() - t0,
+                          launches={k: after[k] - before[k] for k in after if after[k] != before[k]}))
         return recon, n
 
     rlgc._rlgc_core = recorded
     try:
         with plain_versions() if plain else contextlib.nullcontext(), context():
-            before = launched()
+            before = kernel_counts()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = rlgc.chunked_rlgc(image, psf, crop_yx=2048, seed=7, max_iters=max_iters, out="device")
+            out = rlgc.chunked_rlgc(image, psf, crop_yx=crop_yx, seed=7, max_iters=max_iters, out="device")
             torch.cuda.synchronize()
-            return dict(recon=out, iterations=iters, seconds=time.perf_counter() - t0,
+            after = kernel_counts()
+            return dict(recon=out, iterations=[t["iterations"] for t in tiles], tiles=tiles,
+                        seconds=time.perf_counter() - t0,
                         peak_device_bytes=int(torch.cuda.max_memory_allocated()),
-                        launches=launched() - before)
+                        launches=sum(after.values()) - sum(before.values()))
     finally:
         rlgc._rlgc_core = core
 
@@ -1199,6 +1250,45 @@ def camera_frame_solve(image, psf) -> dict:
             f"kernel launches: {k['launches']} through the kernels, {p['launches']} through the plain versions")
     max_rel, l2_rel = rel_delta(k.pop("recon"), p.pop("recon"))
     return {"kernels": k, "plain": p, "max_rel_delta": max_rel, "l2_rel_delta": l2_rel}
+
+
+def camera_frame_tiled(image, psf) -> dict:
+    """The camera frame tiled at ``chunked_rlgc``'s default crop
+    (``crop_yx=None``: ``auto_crop_yx``), solved twice from one seed,
+    through the kernels and through their plain versions: both routes'
+    tiles, walls and peak device memory, and how far the two recons differ
+    over the whole frame and over the band of +-halo voxels around every
+    seam between retained tiles."""
+    import torch
+
+    from merfish3d_tpu_torch.ops import rlgc
+
+    nz, ny, nx = image.shape
+    crop = rlgc.auto_crop_yx(tuple(image.shape), psf.shape)
+    if crop != CAMERA_DEFAULT_CROP:
+        log(f"  auto_crop_yx gives {crop}, not {CAMERA_DEFAULT_CROP}: the frame is tiled at {crop}")
+    halo_y, halo_x = int(psf.shape[1]), int(psf.shape[2])
+    tiles = rlgc.chunk_tiles(ny, nx, crop, halo_y, halo_x)
+    k = camera_frame_route(image, psf, plain=False, crop_yx=None)
+    p = camera_frame_route(image, psf, plain=True, crop_yx=None)
+    require(len(tiles) > 1 and len(k["tiles"]) == len(p["tiles"]) == len(tiles),
+            f"{len(tiles)} tiles planned, {len(k['tiles'])} and {len(p['tiles'])} solved")
+    require(k["launches"] > 0 and p["launches"] == 0,
+            f"kernel launches: {k['launches']} through the kernels, {p['launches']} through the plain versions")
+    band = torch.zeros((ny, nx), dtype=torch.bool, device=image.device)
+    seams_y = sorted({y1 for (_, y1, _, _), _ in tiles if y1 < ny})
+    seams_x = sorted({x1 for (_, _, _, x1), _ in tiles if x1 < nx})
+    for sy in seams_y:
+        band[max(0, sy - halo_y):sy + halo_y, :] = True
+    for sx in seams_x:
+        band[:, max(0, sx - halo_x):sx + halo_x] = True
+    kr, pr = k.pop("recon"), p.pop("recon")
+    max_rel, l2_rel = rel_delta(kr, pr)
+    seam_max_rel, seam_l2_rel = rel_delta(kr[:, band], pr[:, band])
+    return {"crop_yx": crop, "halo_yx": [halo_y, halo_x], "seams_y": seams_y, "seams_x": seams_x,
+            "retained": [list(t[0]) for t in tiles], "kernels": k, "plain": p,
+            "max_rel_delta": max_rel, "l2_rel_delta": l2_rel,
+            "seam_max_rel_delta": seam_max_rel, "seam_l2_rel_delta": seam_l2_rel}
 
 
 def check_camera_frame_dft(image, psf) -> None:
@@ -1317,7 +1407,7 @@ def main() -> int:
     c2.launch_count_direct = 0
     fd.launch_count_zy = 0
     fd.launch_count_x_decode = 0
-    for counts in (pfft.launch_count, rk.launch_count):
+    for counts in (pfft.launch_count, pfft.leading_route_count, rk.launch_count):
         for name in counts:
             counts[name] = 0
     hermetic = [(*key, False, pin) for key, pin in HERMETIC_PINS.items()]
@@ -1417,8 +1507,8 @@ def main() -> int:
         "update_select_f32 (K5)": rk.launch_count["update_select"],
         "conv2d_same (K11)": c2.launch_count,
     }
-    log(f"launch counts on the main path: {launches}; K11's FP32-core (f32-operand) kernel "
-        f"{c2.launch_count_direct}")
+    log(f"launch counts on the main path: {launches}; K8's by route {pfft.leading_route_count}; "
+        f"K11's FP32-core (f32-operand) kernel {c2.launch_count_direct}")
     require(all(n > 0 for n in launches.values()), "a kernel of the path never launched")
     require(c2.launch_count_direct == 0, "a U-Net convolution missed the tensor-core kernel")
     require(sorted(launches) == sorted(row["name"] for row in kernels), "a kernel has no row")
@@ -1451,14 +1541,34 @@ def main() -> int:
             "the camera frame's kernel and plain solves disagree")
     torch.cuda.empty_cache()
     check_camera_frame_dft(frame, readout_psf)
+    torch.cuda.empty_cache()
+
+    # the same frame tiled at chunked_rlgc's default crop
+    tiled = camera_frame_tiled(frame, readout_psf)
     del frame
     torch.cuda.empty_cache()
+    tk, tp = tiled["kernels"], tiled["plain"]
+    log(f"camera frame (32, 2048, 2048) tiled at the default crop {tiled['crop_yx']} (halo "
+        f"{tiled['halo_yx']}, seams y {tiled['seams_y']} x {tiled['seams_x']}) from seed 7 on {card}: "
+        f"kernels {tk['seconds']:.3f} s (peak {tk['peak_device_bytes'] / 2**30:.2f} GiB), plain versions "
+        f"{tp['seconds']:.3f} s (peak {tp['peak_device_bytes'] / 2**30:.2f} GiB)")
+    for i, (ret, a, b) in enumerate(zip(tiled["retained"], tk["tiles"], tp["tiles"])):
+        log(f"  tile {i} retained {ret}, padded {a['padded_shape']}: iterations {a['iterations']} "
+            f"(kernels, {a['seconds']:.3f} s) and {b['iterations']} (plain, {b['seconds']:.3f} s); "
+            f"kernel launches {a['launches']}")
+    log(f"  whole frame: max |delta| / max |recon| {tiled['max_rel_delta']:.3e}, ||delta|| / ||recon|| "
+        f"{tiled['l2_rel_delta']:.3e}; +-halo band of the seams: {tiled['seam_max_rel_delta']:.3e}, "
+        f"{tiled['seam_l2_rel_delta']:.3e} (limits {CAMERA_SOLVE_MAX_RTOL}, {CAMERA_SOLVE_L2_RTOL})")
+    require(tk["iterations"] == tp["iterations"], "a tile's kernel and plain solves stopped apart")
+    require(max(tiled["max_rel_delta"], tiled["seam_max_rel_delta"]) <= CAMERA_SOLVE_MAX_RTOL
+            and max(tiled["l2_rel_delta"], tiled["seam_l2_rel_delta"]) <= CAMERA_SOLVE_L2_RTOL,
+            "the tiled camera frame's kernel and plain solves disagree")
 
     for row in kernels:
         row["launches"] = launches[row["name"]]
     summary = {"hermetic_f1": hermetic_f1, "production": {}, "fiducial_decon": fid, "c32_tile": c32,
                "k11_layers": k11_shapes, "camera_pair": camera, "solve_twice": twice,
-               "camera_frame_solve": cam_solve, "dft_times": DFT_TIMES}
+               "camera_frame_solve": cam_solve, "camera_frame_tiled": tiled, "dft_times": DFT_TIMES}
     for key, prod in productions.items():
         summary["production"][key] = {k: v for k, v in prod.items() if k != "f1"}
         summary["production"][key]["f1"] = prod["f1"]["f1"]

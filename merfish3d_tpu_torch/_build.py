@@ -120,7 +120,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.dft_trailing_f32.restype = i
     lib.dft_middle_f32.argtypes = [p] * 7 + [i] * 5 + [p]
     lib.dft_middle_f32.restype = i
-    lib.dft_leading_f32.argtypes = [p, p, p, p, p, i, ll, p]
+    lib.dft_leading_f32.argtypes = [p] * 5 + [i, i, i, ll, i, p]
     lib.dft_leading_f32.restype = i
     lib.dft_zx_f32.argtypes = [p] * 8 + [i] * 6 + [p]
     lib.dft_zx_f32.restype = i

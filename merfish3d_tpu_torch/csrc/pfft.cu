@@ -9,11 +9,10 @@
 //
 // Complex values are (real, imag) float32 planes in device memory; the
 // constant tables (w1 (n1, n1), twiddle (n1, 128), W128^j (128), dense
-// wz (n, n), for K10 zero-padded to (n, nzp); for K9 also w2 (128, 128))
-// are complex64, built on the host in double precision and uploaded by
-// the wrapper, so no angle is ever evaluated here. Inverse tables carry
-// the 1/n scale (in the twiddle). All arithmetic is FP32 FMA on CUDA
-// cores.
+// wz (n, n) zero-padded to (n, nzp), K8's radix table) are complex64,
+// built on the host in double precision and uploaded by the wrapper, so
+// no angle is ever evaluated here. Inverse tables carry the 1/n scale.
+// All arithmetic is FP32 FMA on CUDA cores.
 //
 // Cooley-Tukey split of a length n = n1*128 line, natural j = 128p + q:
 //   forward  C[k][q] = tw[k][q] * sum_p x[p][q] w1[k][p]      (stage 1)
@@ -26,13 +25,12 @@
 // What bounds them: the transform needs ~5*log2(n) flops an element and
 // axis against 12-16 bytes moved, so on this card (67 TFLOP/s FP32,
 // 3.35 TB/s) its bound is the bytes. A dense 128-point stage 2 (128
-// complex multiply-adds an element) is instead bound by issuing its
-// loads: a shared-memory operand and a w2 entry from a 128 KB table that
-// L1 cannot keep, for every multiply-add. So K6, K7 and K10 run stage 2
-// as the radix FFT of fft128.cuh (16 x 8 in registers, one exchange
-// through shared memory, ~2.7 kflop a transform instead of 131); only K9
-// keeps the dense one for now. Stage 1 (n1 <= 24 points, any length) is
-// dense, from registers: a thread holds the n1 values of one q.
+// complex multiply-adds an element) would instead be bound by issuing its
+// loads, a shared-memory operand and a table entry for every multiply-add,
+// so every stage 2 here is the radix FFT of fft128.cuh (16 x 8 in
+// registers, one exchange through shared memory, ~2.7 kflop a transform
+// instead of 131). Stage 1 (n1 <= 24 points, any length) is dense, from
+// registers: a thread holds the n1 values of one q.
 //
 // Per kernel:
 // - K6 (x, contiguous; merfish3d_tpu/ops/pfft.py dft_trailing): one
@@ -47,24 +45,40 @@
 //     warp-uniform loads. Forward: with the twiddle, natural order in.
 //     Inverse: the n1-point synthesis to natural order, in place.
 //   pass B (dft_middle_b): one block a (z, group k, 32-column tile): the
-//     128 x 32 tile is staged transposed (a column's 128-group contiguous
-//     at an odd stride of 129 float2, so the row-wise stores of a
-//     half-warp hit 16 bank pairs), then 32 fft128::transforms, 8 lanes
-//     each, four a warp; the two groups of a half-warp are columns 8
-//     apart, 8 bank pairs apart, so the transform's accesses are
-//     conflict-free too. 33 KB of shared memory a block, so several
-//     blocks an SM at every length. Inverse: the conjugate twiddle (1/n
-//     folded in) on the way out. mid_group_tile is written so that K9
-//     can run it between its own loads and stores.
+//     128 x 32 tile is staged transposed (mid_stage: a column's 128-group
+//     contiguous at an odd stride of 129 float2, so the row-wise stores of
+//     a half-warp hit 16 bank pairs), then 32 fft128::transforms, 8 lanes
+//     each, four a warp (mid_transform); the two groups of a half-warp are
+//     columns 8 apart, 8 bank pairs apart, so the transform's accesses are
+//     conflict-free too. 33 KB of shared memory a block, so several blocks
+//     an SM at every length. Inverse: the conjugate twiddle (1/n folded
+//     in) on the way out (mid_store).
 //   Forward: pass A into the output, pass B in place on it. Inverse:
 //   pass B into the output, pass A in place; the intermediate is
 //   complex, so the output's imaginary plane is written as scratch even
 //   when only the real part is returned. 32 B an element move in all
 //   (twice the one-pass bound).
-// - K8 (z dense): a block holds 64 adjacent (y, x) columns, n*64*8 B
-//   <= 48 KB; the (n, n) matrix is read through the read-only cache.
-// - K9 (y; forward, OTF product, inverse in one launch): a block holds 8
-//   adjacent x columns of one z plane, stage 2 dense as above.
+// - K9 (y; forward, OTF product, inverse; merfish3d_tpu/ops/pfft.py
+//   dft_mid_conv). The TPU kernel keeps a y column group in VMEM through
+//   both transforms. Here it is three streaming launches built from K7's
+//   pieces: pass A forward into the output; pass B conv (dft_mid_conv_b)
+//   in place, one block a (z, group k, 32-column tile) as K7's pass B:
+//   stage, forward transform, the product with the OTF at the spectrum's
+//   own (z, k*128 + m, x) coordinates read in the staging's 128 B row
+//   pattern, inverse transform, the conjugate twiddle (1/n folded in) on
+//   the way out; then pass A inverse in place. 56 B an element move
+//   (against 24 for a one-pass form); the flops are far below the FP32
+//   peak's time.
+// - K8 (z, stride plane; merfish3d_tpu/ops/pfft.py dft_leading), by the
+//   length alone (ops/pfft.py leading_route): for n = R*M <= 64 with M
+//   in {8, 16}, dft_lead_radix holds one (y, x) column a thread in
+//   registers, lanes along the plane (each of the n row accesses of a warp
+//   is one 128 B transaction, 2n loads in flight a thread): R M-point
+//   radix DFTs (fft128.cuh's dft8 / dft16), the inter-stage twiddle, then
+//   M dense R-point DFTs, from one warp-uniform table; no shared memory.
+//   A column of 80 or 96 spills its registers, so those and every other
+//   length are one launch of K10's z pass, the same dense DFT along
+//   axis 0. 16 B an element with complex input and output.
 // - K10 (z and x of a (z, y, x) volume; merfish3d_tpu/ops/pfft.py dft_zx,
 //   _dft_zx_fwd_kernel / _dft_zx_inv_kernel). The TPU kernel keeps a
 //   whole (nz, nx) plane in VMEM and runs both 128-point stages as MXU
@@ -104,9 +118,6 @@ namespace {
 
 constexpr int LANE = 128;
 constexpr int MAX_N1 = 24;
-constexpr int THREADS = 256;
-constexpr int MID_TX = 8;  // K9: x columns a block
-constexpr int LEAD_COLS = 64;
 
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
     return make_float2(fmaf(a.x, b.x, -a.y * b.y), fmaf(a.x, b.y, a.y * b.x));
@@ -117,116 +128,6 @@ __device__ __forceinline__ void cmac(float2& acc, float2 a, float2 b) {
     acc.x = fmaf(-a.y, b.y, acc.x);
     acc.y = fmaf(a.x, b.y, acc.y);
     acc.y = fmaf(a.y, b.x, acc.y);
-}
-
-// L lines of length n1*128: element j of line l sits at base + l*ls + j*js
-// of each channel. Shared memory holds a line group as S[j*L + l].
-struct Lines {
-    long long base, ls, js;
-    int L;
-    __device__ long long at(int l, int j) const {
-        return base + l * ls + static_cast<long long>(j) * js;
-    }
-};
-
-// work item -> (index i along the line, line l): adjacent lines (ls = 1)
-// are the fastest, so accesses coalesce
-__device__ __forceinline__ void split_item(int item, const Lines& g, int& i, int& l) {
-    l = item % g.L;
-    i = item / g.L;
-}
-
-// forward stage 1 + twiddle, from device memory into S = C[(k*128+q)*L + l]
-__device__ void ct_fwd_stage1(const float* xr, const float* xi, const Lines g, int n1,
-                              const float2* __restrict__ w1, const float2* __restrict__ tw,
-                              float2* S) {
-    for (int item = threadIdx.x; item < LANE * g.L; item += blockDim.x) {
-        int q, l;
-        split_item(item, g, q, l);
-        float2 xv[MAX_N1];
-#pragma unroll
-        for (int p = 0; p < MAX_N1; ++p) {
-            if (p < n1) {
-                const long long o = g.at(l, p * LANE + q);
-                xv[p] = make_float2(xr[o], xi ? xi[o] : 0.f);
-            }
-        }
-        for (int k = 0; k < n1; ++k) {
-            float2 acc = make_float2(0.f, 0.f);
-#pragma unroll
-            for (int p = 0; p < MAX_N1; ++p)
-                if (p < n1) cmac(acc, xv[p], __ldg(&w1[k * n1 + p]));
-            S[(k * LANE + q) * g.L + l] = cmul(acc, __ldg(&tw[k * LANE + q]));
-        }
-    }
-}
-
-// inverse stage 1 from E[(k*128+q)*L + l] in S: the n1-point synthesis,
-// natural order out
-__device__ void ct_inv_stage1(const float2* S, const Lines g, int n1,
-                              const float2* __restrict__ w1, float* yr, float* yi) {
-    for (int item = threadIdx.x; item < LANE * g.L; item += blockDim.x) {
-        int q, l;
-        split_item(item, g, q, l);
-        float2 e[MAX_N1];
-#pragma unroll
-        for (int k = 0; k < MAX_N1; ++k)
-            if (k < n1) e[k] = S[(k * LANE + q) * g.L + l];
-        for (int p = 0; p < n1; ++p) {
-            float2 acc = make_float2(0.f, 0.f);
-#pragma unroll
-            for (int k = 0; k < MAX_N1; ++k)
-                if (k < n1) cmac(acc, e[k], __ldg(&w1[k * n1 + p]));
-            const long long o = g.at(l, p * LANE + q);
-            yr[o] = acc.x;
-            yi[o] = acc.y;
-        }
-    }
-}
-
-// dense DFT over n rows of `ncols` adjacent columns starting at c0 of a
-// (n, plane) layout: out[k][c] = sum_j W[k][j] x[j][c], staged through
-// S[j*sc + c]. x and y may be the same arrays (every read precedes the
-// barrier, every write follows it); xi null reads zeros, yi null skips.
-__device__ void dense_cols(const float* xr, const float* xi, float* yr, float* yi, int n,
-                           long long plane, long long c0, int ncols, int sc,
-                           const float2* __restrict__ W, float2* S) {
-    for (int item = threadIdx.x; item < n * sc; item += blockDim.x) {
-        const int c = item % sc, j = item / sc;
-        if (c >= ncols) continue;
-        const long long o = j * plane + c0 + c;
-        S[j * sc + c] = make_float2(xr[o], xi ? xi[o] : 0.f);
-    }
-    __syncthreads();
-    for (int item = threadIdx.x; item < n * sc; item += blockDim.x) {
-        const int c = item % sc, k = item / sc;
-        if (c >= ncols) continue;
-        float2 acc = make_float2(0.f, 0.f);
-        for (int j = 0; j < n; ++j) cmac(acc, S[j * sc + c], __ldg(&W[k * n + j]));
-        const long long o = k * plane + c0 + c;
-        yr[o] = acc.x;
-        if (yi) yi[o] = acc.y;
-    }
-    __syncthreads();
-}
-
-// K9's line group: MID_TX adjacent x columns of one z plane
-__device__ Lines middle_lines(int n1, int nx) {
-    const int tiles = nx / MID_TX;
-    const long long z = blockIdx.x / tiles;
-    const int x0 = (blockIdx.x % tiles) * MID_TX;
-    return Lines{z * n1 * LANE * nx + x0, 1, nx, MID_TX};
-}
-
-// ---------------------------------------------------------------- K8
-__global__ void __launch_bounds__(THREADS)
-dft_leading_k(const float* xr, const float* xi, float* yr, float* yi, const float2* w, int n,
-              long long plane) {
-    extern __shared__ float2 smem[];
-    const long long c0 = static_cast<long long>(blockIdx.x) * LEAD_COLS;
-    const long long left = plane - c0;
-    dense_cols(xr, xi, yr, yi, n, plane, c0, static_cast<int>(left < LEAD_COLS ? left : LEAD_COLS),
-               LEAD_COLS, w, smem);
 }
 
 // ---------------------------------------------------------------- K10
@@ -405,94 +306,164 @@ dft_middle_a(const float* xr, const float* xi, float* yr, float* yi, const float
     }
 }
 
-// pass B's work on one tile: the 128-point FFTs of MID_B_COLS adjacent
-// columns of one 128-row group, rows base + r*nx (r < 128) of each plane,
-// staged transposed in S (MID_B_COLS * MID_B_GS float2). All MID_B_WARPS
-// warps of the block call it together; it synchronizes the block. INV
-// multiplies output q by tw_k[q]. xi null reads zeros. In place is
-// allowed: every read precedes the first barrier.
-template <bool INV>
-__device__ __forceinline__ void mid_group_tile(const float* xr, const float* xi, float* yr, float* yi,
-                                               long long base, int nx, const float2* __restrict__ tw_k,
-                                               const float2* __restrict__ w128, float2* S) {
+// Pass B's three steps on one tile: MID_B_COLS adjacent columns of one
+// 128-row group, rows base + r*nx (r < 128) of each plane, held
+// transposed in S (column c at S + c*MID_B_GS). All MID_B_WARPS warps of
+// the block call each step together; the caller puts a barrier between
+// steps. K7's pass B and K9's conv pass share them.
+
+// stage: row r into column `lane`; at the odd stride a half-warp's stores
+// hit 16 bank pairs. xi null reads zeros.
+__device__ __forceinline__ void mid_stage(const float* xr, const float* xi, long long base, int nx,
+                                          float2* S) {
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    // row r into column `lane`: at the odd stride a half-warp's stores
-    // hit 16 bank pairs
 #pragma unroll
     for (int i = 0; i < LANE / MID_B_WARPS; ++i) {
         const int r = warp + i * MID_B_WARPS;
         const long long o = base + static_cast<long long>(r) * nx + lane;
         S[lane * MID_B_GS + r] = make_float2(xr[o], xi ? xi[o] : 0.f);
     }
-    __syncthreads();
-    // four transforms a warp, 8 lanes each; the two of a half-warp are
-    // columns c and c + 8, whose groups start 8 bank pairs apart
+}
+
+// transform: the tile's 32 128-point FFTs, four a warp, 8 lanes each; the
+// two of a half-warp are columns c and c + 8, whose groups start 8 bank
+// pairs apart
+template <bool INV>
+__device__ __forceinline__ void mid_transform(float2* S, const float2* __restrict__ w128) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int g = lane >> 3, pair = 2 * warp + (g >> 1);
     const int col = (pair & 7) + 16 * (pair >> 3) + 8 * (g & 1);
     fft128::transform<INV>(S + col * MID_B_GS, lane & 7, true, w128);
-    __syncthreads();
+}
+
+// store: the tile back to the rows, output q times tw_k[q] where tw_k is
+// not null
+__device__ __forceinline__ void mid_store(const float2* S, float* yr, float* yi, long long base, int nx,
+                                          const float2* __restrict__ tw_k) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 #pragma unroll
     for (int i = 0; i < LANE / MID_B_WARPS; ++i) {
         const int r = warp + i * MID_B_WARPS;
         float2 v = S[lane * MID_B_GS + r];
-        if (INV) v = cmul(v, __ldg(&tw_k[r]));
+        if (tw_k) v = cmul(v, __ldg(&tw_k[r]));
         const long long o = base + static_cast<long long>(r) * nx + lane;
         yr[o] = v.x;
         yi[o] = v.y;
     }
 }
 
-// pass B: one block a (z, group k, 32-column tile). Forward: X[k*128 + m]
-// from C[k][q] (scrambled order out). Inverse: E[k][q] = tw'[k][q] times
-// the inverse FFT of Y[k*128 + m].
+// A pass-B block's tile: (z, group k, 32-column tile) of blockIdx.x;
+// returns the tile's first element and sets k.
+__device__ __forceinline__ long long mid_tile(int n1, int nx, int& k) {
+    const int tiles = nx / MID_B_COLS;
+    const long long zk = blockIdx.x / tiles;  // z * n1 + k
+    k = static_cast<int>(zk % n1);
+    return zk * LANE * nx + (blockIdx.x % tiles) * MID_B_COLS;
+}
+
+// pass B: forward X[k*128 + m] from C[k][q] (scrambled order out); inverse
+// E[k][q] = tw'[k][q] times the inverse FFT of Y[k*128 + m]. In place is
+// allowed: every read precedes the first barrier.
 template <bool INV>
 __global__ void __launch_bounds__(MID_B_WARPS * 32)
 dft_middle_b(const float* xr, const float* xi, float* yr, float* yi, const float2* __restrict__ tw,
              const float2* __restrict__ w128, int n1, int nx) {
     __shared__ float2 S[MID_B_COLS * MID_B_GS];
-    const int tiles = nx / MID_B_COLS;
-    const long long zk = blockIdx.x / tiles;  // z * n1 + k
-    const int k = static_cast<int>(zk % n1);
-    const long long base = zk * LANE * nx + (blockIdx.x % tiles) * MID_B_COLS;
-    mid_group_tile<INV>(xr, xi, yr, yi, base, nx, tw + k * LANE, w128, S);
+    int k;
+    const long long base = mid_tile(n1, nx, k);
+    mid_stage(xr, xi, base, nx, S);
+    __syncthreads();
+    mid_transform<INV>(S, w128);
+    __syncthreads();
+    mid_store(S, yr, yi, base, nx, INV ? tw + k * LANE : nullptr);
 }
 
 // ---------------------------------------------------------------- K9
-__global__ void __launch_bounds__(THREADS)
-dft_mid_conv_k(const float* xr, const float* xi, const float* hr, const float* hi, float* yr,
-               float* yi, const float2* w1f, const float2* twf, const float2* w2f,
-               const float2* w1i, const float2* twi, const float2* w2i, int n1, int nx) {
-    extern __shared__ float2 smem[];
-    const Lines g = middle_lines(n1, nx);
-    float2* S = smem;                    // the slab: C, then E, group by group
-    float2* T = smem + n1 * LANE * g.L;  // one group's spectrum times the OTF
-    ct_fwd_stage1(xr, xi, g, n1, w1f, twf, S);
+// pass B conv, in place on pass A's output y: the forward 128-point FFTs
+// of the tile (spectrum positions k*128 + m), the product with the OTF h
+// at the same coordinates, the inverse FFTs, the conjugate twiddle twi
+// (1/n folded in) on the way out.
+__global__ void __launch_bounds__(MID_B_WARPS * 32)
+dft_mid_conv_b(float* yr, float* yi, const float* __restrict__ hr, const float* __restrict__ hi,
+               const float2* __restrict__ twi, const float2* __restrict__ w128f,
+               const float2* __restrict__ w128i, int n1, int nx) {
+    __shared__ float2 S[MID_B_COLS * MID_B_GS];
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    int k;
+    const long long base = mid_tile(n1, nx, k);
+    mid_stage(yr, yi, base, nx, S);
     __syncthreads();
-    for (int k = 0; k < n1; ++k) {
-        float2* Sk = S + k * LANE * g.L;
-        // forward stage 2 of group k: spectrum positions k*128 + m
-        for (int item = threadIdx.x; item < LANE * g.L; item += blockDim.x) {
-            int m, l;
-            split_item(item, g, m, l);
-            float2 acc = make_float2(0.f, 0.f);
-#pragma unroll 8
-            for (int q = 0; q < LANE; ++q) cmac(acc, Sk[q * g.L + l], __ldg(&w2f[q * LANE + m]));
-            const long long o = g.at(l, k * LANE + m);
-            T[m * g.L + l] = cmul(acc, make_float2(hr[o], hi[o]));
-        }
-        __syncthreads();
-        // inverse stage 2 + conjugate twiddle (1/n folded in) of group k
-        for (int item = threadIdx.x; item < LANE * g.L; item += blockDim.x) {
-            int q, l;
-            split_item(item, g, q, l);
-            float2 acc = make_float2(0.f, 0.f);
-#pragma unroll 8
-            for (int m = 0; m < LANE; ++m) cmac(acc, T[m * g.L + l], __ldg(&w2i[m * LANE + q]));
-            Sk[q * g.L + l] = cmul(acc, __ldg(&twi[k * LANE + q]));
-        }
-        __syncthreads();
+    mid_transform<false>(S, w128f);
+    __syncthreads();
+    // the OTF product, in the staging's row pattern (128 B a warp access)
+#pragma unroll
+    for (int i = 0; i < LANE / MID_B_WARPS; ++i) {
+        const int r = warp + i * MID_B_WARPS;
+        const long long o = base + static_cast<long long>(r) * nx + lane;
+        float2& v = S[lane * MID_B_GS + r];
+        v = cmul(v, make_float2(hr[o], hi[o]));
     }
-    ct_inv_stage1(S, g, n1, w1i, yr, yi);
+    __syncthreads();
+    mid_transform<true>(S, w128i);
+    __syncthreads();
+    mid_store(S, yr, yi, base, nx, twi + k * LANE);
+}
+
+// ---------------------------------------------------------------- K8
+constexpr int LEAD_THREADS = 128;
+
+template <int M, bool INV>
+__device__ __forceinline__ void dft_radix(float2 (&v)[M]) {
+    static_assert(M == 8 || M == 16, "radix 8 or 16");
+    if constexpr (M == 8)
+        fft128::dft8<INV>(v);
+    else
+        fft128::dft16<INV>(v);
+}
+
+// The n-point DFT (n = R*M) along axis 0 of an (n, plane) pair, one
+// column c a thread, natural order in and out. Input j = R*j2 + j1,
+// output k = k1 + M*k2:
+//   U[j1][k1] = W_n^(j1 k1) * sum_j2 x[R j2 + j1] W_M^(j2 k1)   (R radix DFTs)
+//   X[k1 + M k2] = sum_j1 U[j1][k1] W_R^(j1 k2)                   (M dense R-point DFTs)
+// tab: W_n^(j1 k1) at j1*M + k1 (R*M entries), then W_R^(j1 k2) at
+// R*M + j1*R + k2 (R*R, times 1/n for the inverse); warp-uniform reads.
+// xi null reads zeros; yi null skips the imaginary output.
+template <int R, int M, bool INV>
+__global__ void __launch_bounds__(LEAD_THREADS)
+dft_lead_radix(const float* xr, const float* xi, float* yr, float* yi,
+               const float2* __restrict__ tab, long long plane) {
+    const long long c = static_cast<long long>(blockIdx.x) * LEAD_THREADS + threadIdx.x;
+    if (c >= plane) return;
+    float2 u[R][M];
+#pragma unroll
+    for (int j1 = 0; j1 < R; ++j1)
+#pragma unroll
+        for (int j2 = 0; j2 < M; ++j2) {
+            const long long o = static_cast<long long>(R * j2 + j1) * plane + c;
+            u[j1][j2] = make_float2(xr[o], xi ? xi[o] : 0.f);
+        }
+#pragma unroll
+    for (int j1 = 0; j1 < R; ++j1) {
+        dft_radix<M, INV>(u[j1]);
+        if (j1 > 0) {
+#pragma unroll
+            for (int k1 = 1; k1 < M; ++k1) u[j1][k1] = cmul(u[j1][k1], __ldg(&tab[j1 * M + k1]));
+        }
+    }
+    const float2* wr = tab + R * M;
+#pragma unroll
+    for (int k1 = 0; k1 < M; ++k1) {
+#pragma unroll
+        for (int k2 = 0; k2 < R; ++k2) {
+            float2 acc = make_float2(0.f, 0.f);
+#pragma unroll
+            for (int j1 = 0; j1 < R; ++j1) cmac(acc, u[j1][k1], __ldg(&wr[j1 * R + k2]));
+            const long long o = static_cast<long long>(k1 + M * k2) * plane + c;
+            yr[o] = acc.x;
+            if (yi) yi[o] = acc.y;
+        }
+    }
 }
 
 template <typename K>
@@ -511,6 +482,29 @@ cudaError_t launch_rows(const float* xr, const float* xi, float* yr, float* yi, 
     if (err != cudaSuccess) return err;
     kernel<<<static_cast<unsigned>(rows), ZX_WARPS * 32, smem, s>>>(xr, xi, yr, yi, w1, tw, w128, n1,
                                                                     write_imag);
+    return cudaGetLastError();
+}
+
+// the z pass over an (nz, plane) pair: K10's z pass, and K8's dense route
+cudaError_t launch_z(const float* xr, const float* xi, float* yr, float* yi, const float4* wz, int nz,
+                     int nzp, long long plane, cudaStream_t s) {
+    const int warps = (nz + ZX_KT - 1) / ZX_KT < ZX_ZWARPS ? (nz + ZX_KT - 1) / ZX_KT : ZX_ZWARPS;
+    const size_t smem = static_cast<size_t>(nz) * ZX_COLS * sizeof(float2);
+    const cudaError_t err = allow_smem(dft_zx_z, smem);
+    if (err != cudaSuccess) return err;
+    const unsigned blocks = static_cast<unsigned>((plane + ZX_COLS - 1) / ZX_COLS);
+    dft_zx_z<<<blocks, warps * 32, smem, s>>>(xr, xi, yr, yi, wz, nz, nzp, plane);
+    return cudaGetLastError();
+}
+
+template <int R, int M>
+cudaError_t launch_lead_radix(const float* xr, const float* xi, float* yr, float* yi, const float2* tab,
+                              long long plane, bool inverse, cudaStream_t s) {
+    const unsigned blocks = static_cast<unsigned>((plane + LEAD_THREADS - 1) / LEAD_THREADS);
+    if (inverse)
+        dft_lead_radix<R, M, true><<<blocks, LEAD_THREADS, 0, s>>>(xr, xi, yr, yi, tab, plane);
+    else
+        dft_lead_radix<R, M, false><<<blocks, LEAD_THREADS, 0, s>>>(xr, xi, yr, yi, tab, plane);
     return cudaGetLastError();
 }
 
@@ -554,16 +548,32 @@ int dft_middle_f32(const float* xr, const float* xi, float* yr, float* yi, const
     return cudaGetLastError();
 }
 
+// K8: one launch, by the length (ops/pfft.py leading_route): radix M
+// (8 or 16) takes dft_lead_radix with K8's radix table w; radix 0 takes
+// the z pass with the dense table w, zero-padded to rows of nzp. yi null
+// drops the inverse's imaginary output. A length the radix route does not
+// instantiate returns cudaErrorInvalidValue.
 int dft_leading_f32(const float* xr, const float* xi, float* yr, float* yi, const void* w, int n,
-                    long long plane, void* stream) {
-    const size_t smem = static_cast<size_t>(n) * LEAD_COLS * sizeof(float2);
-    cudaError_t err = allow_smem(dft_leading_k, smem);
-    if (err != cudaSuccess) return err;
-    const long long blocks = (plane + LEAD_COLS - 1) / LEAD_COLS;
-    dft_leading_k<<<static_cast<unsigned>(blocks), THREADS, smem,
-                    static_cast<cudaStream_t>(stream)>>>(xr, xi, yr, yi,
-                                                         static_cast<const float2*>(w), n, plane);
-    return cudaGetLastError();
+                    int radix, int nzp, long long plane, int inverse, void* stream) {
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const float2* tab = static_cast<const float2*>(w);
+    const bool inv = inverse != 0;
+    if (radix == 0) return launch_z(xr, xi, yr, yi, static_cast<const float4*>(w), n, nzp, plane, s);
+    if (radix == 8) {
+        switch (n) {
+            case 8: return launch_lead_radix<1, 8>(xr, xi, yr, yi, tab, plane, inv, s);
+            case 24: return launch_lead_radix<3, 8>(xr, xi, yr, yi, tab, plane, inv, s);
+            case 40: return launch_lead_radix<5, 8>(xr, xi, yr, yi, tab, plane, inv, s);
+        }
+    } else if (radix == 16) {
+        switch (n) {
+            case 16: return launch_lead_radix<1, 16>(xr, xi, yr, yi, tab, plane, inv, s);
+            case 32: return launch_lead_radix<2, 16>(xr, xi, yr, yi, tab, plane, inv, s);
+            case 48: return launch_lead_radix<3, 16>(xr, xi, yr, yi, tab, plane, inv, s);
+            case 64: return launch_lead_radix<4, 16>(xr, xi, yr, yi, tab, plane, inv, s);
+        }
+    }
+    return cudaErrorInvalidValue;
 }
 
 // K10: two launches on one stream (see the note at the top). yi is
@@ -576,36 +586,38 @@ int dft_zx_f32(const float* xr, const float* xi, float* yr, float* yi, const voi
     const float2 *c1 = static_cast<const float2*>(w1), *ct = static_cast<const float2*>(tw),
                  *c128 = static_cast<const float2*>(w128);
     const float4* cz = static_cast<const float4*>(wz);
-    const int warps_z = (nz + ZX_KT - 1) / ZX_KT < ZX_ZWARPS ? (nz + ZX_KT - 1) / ZX_KT : ZX_ZWARPS;
     const long long rows = static_cast<long long>(nz) * ny;
     const long long plane = static_cast<long long>(ny) * n1 * LANE;
-    const size_t smem_z = static_cast<size_t>(nz) * ZX_COLS * sizeof(float2);
-    const unsigned blocks_z = static_cast<unsigned>((plane + ZX_COLS - 1) / ZX_COLS);
-    cudaError_t err = allow_smem(dft_zx_z, smem_z);
-    if (err != cudaSuccess) return err;
     if (inverse) {
-        dft_zx_z<<<blocks_z, warps_z * 32, smem_z, s>>>(xr, xi, yr, yi, cz, nz, nzp, plane);
-        err = cudaGetLastError();
+        const cudaError_t err = launch_z(xr, xi, yr, yi, cz, nz, nzp, plane, s);
         if (err != cudaSuccess) return err;
         return launch_rows(yr, yi, yr, yi, c1, ct, c128, rows, n1, true, real_out ? 0 : 1, s);
     }
-    err = launch_rows(xr, xi, yr, yi, c1, ct, c128, rows, n1, false, 1, s);
+    const cudaError_t err = launch_rows(xr, xi, yr, yi, c1, ct, c128, rows, n1, false, 1, s);
     if (err != cudaSuccess) return err;
-    dft_zx_z<<<blocks_z, warps_z * 32, smem_z, s>>>(yr, yi, yr, yi, cz, nz, nzp, plane);
-    return cudaGetLastError();
+    return launch_z(yr, yi, yr, yi, cz, nz, nzp, plane, s);
 }
 
+// K9: three launches on one stream (see the note at the top): pass A
+// forward into y, pass B conv in place, pass A inverse in place. The
+// tables are K7's, forward (w1f, twf, w128f) and inverse (w1i, twi, w128i).
 int dft_mid_conv_f32(const float* xr, const float* xi, const float* hr, const float* hi, float* yr,
-                     float* yi, const void* w1f, const void* twf, const void* w2f, const void* w1i,
-                     const void* twi, const void* w2i, int nz, int n1, int nx, void* stream) {
-    const size_t smem = static_cast<size_t>(n1 + 1) * LANE * MID_TX * sizeof(float2);
-    cudaError_t err = allow_smem(dft_mid_conv_k, smem);
+                     float* yi, const void* w1f, const void* twf, const void* w128f, const void* w1i,
+                     const void* twi, const void* w128i, int nz, int n1, int nx, void* stream) {
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const unsigned blocks_a = static_cast<unsigned>(nz) * (LANE / MID_A_WARPS) * (nx / 32);
+    const unsigned blocks_b = static_cast<unsigned>(nz) * n1 * (nx / MID_B_COLS);
+    dft_middle_a<false><<<blocks_a, MID_A_WARPS * 32, 0, s>>>(
+        xr, xi, yr, yi, static_cast<const float2*>(w1f), static_cast<const float2*>(twf), n1, nx, 1);
+    cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    const unsigned blocks = static_cast<unsigned>(nz) * (nx / MID_TX);
-    dft_mid_conv_k<<<blocks, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-        xr, xi, hr, hi, yr, yi, static_cast<const float2*>(w1f), static_cast<const float2*>(twf),
-        static_cast<const float2*>(w2f), static_cast<const float2*>(w1i),
-        static_cast<const float2*>(twi), static_cast<const float2*>(w2i), n1, nx);
+    dft_mid_conv_b<<<blocks_b, MID_B_WARPS * 32, 0, s>>>(
+        yr, yi, hr, hi, static_cast<const float2*>(twi), static_cast<const float2*>(w128f),
+        static_cast<const float2*>(w128i), n1, nx);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    dft_middle_a<true><<<blocks_a, MID_A_WARPS * 32, 0, s>>>(
+        yr, yi, yr, yi, static_cast<const float2*>(w1i), static_cast<const float2*>(twi), n1, nx, 1);
     return cudaGetLastError();
 }
 

@@ -3,20 +3,25 @@
 ``merfish3d_tpu/ops/mmfft.py``).
 
 Five kernels, hand-written CUDA in ``csrc/pfft.cu``; every 128-point
-stage but K9's is the radix FFT of ``csrc/fft128.cuh``:
+stage is the radix FFT of ``csrc/fft128.cuh``:
 
 - K6 :func:`dft_trailing` — DFT along the last axis of a (rows, n) pair
   (one launch of K10's x pass, a line a block),
 - K7 :func:`dft_middle` — DFT along axis 1 of a (z, n, x) pair (two
   launches: the n1-point stage along y with lanes along x, and the
   128-point FFTs of 32-column tiles staged transposed),
-- K8 :func:`dft_leading` — dense DFT along axis 0 of a (n, y, x) pair,
+- K8 :func:`dft_leading` — DFT along axis 0 of a (n, y, x) pair, natural
+  order (one launch, by the length alone, :func:`leading_route`: a column
+  a thread in registers for n = R·M ≤ 64, M ∈ {8, 16}, else K10's dense
+  z pass),
 - K10 :func:`dft_zx` — DFT along axes 0 and 2 of a (z, y, x) pair in one
   call (an x pass whose 128-point stage is a radix FFT, then a dense z
   pass),
 - K9 :func:`dft_mid_conv` — forward y DFT, product with an OTF pair in
-  the same scrambled order, inverse y DFT, in one launch (the middle pass
-  of an RLGC convolution; its 128-point stages are still dense).
+  the same scrambled order, inverse y DFT (the middle pass of an RLGC
+  convolution; three launches: K7's n1-point pass forward, K7's staged
+  128-point FFTs with the OTF product between forward and inverse, K7's
+  n1-point pass inverse).
 
 Spectrum order is a function of the axis length alone, as on the TPU: a
 Cooley-Tukey length n = n1·128 (2 <= n1 <= 24, :func:`supported_ct_axis`)
@@ -50,6 +55,8 @@ _ZX_TY = 8
 launch_count = {
     "dft_trailing": 0, "dft_middle": 0, "dft_leading": 0, "dft_zx": 0, "dft_mid_conv": 0,
 }
+# K8's launches by route (:func:`leading_route`), also counted in launch_count
+leading_route_count = {"radix": 0, "z": 0}
 
 
 # ------------------------------------------------------------ predicates
@@ -127,9 +134,9 @@ def scramble_perm(n: int) -> np.ndarray:
 
 @lru_cache(maxsize=None)
 def _consts_ct(n: int, inverse: bool):
-    """(w1 (n1, n1), twiddle (n1, 128), w2 (128, 128)) complex64 for the
-    Cooley-Tukey kernels; inverse constants are conjugated, with the 1/n
-    scale folded into the twiddle."""
+    """(w1 (n1, n1), twiddle (n1, 128)) complex64 for the Cooley-Tukey
+    kernels; inverse constants are conjugated, with the 1/n scale folded
+    into the twiddle."""
     n1 = n // _LANE
     sign = +1.0 if inverse else -1.0
     k = np.arange(n1)
@@ -138,8 +145,7 @@ def _consts_ct(n: int, inverse: bool):
     tw = np.exp(sign * 2j * np.pi * np.outer(k, q) / n)
     if inverse:
         tw = tw / n
-    w2 = np.exp(sign * 2j * np.pi * np.outer(q, q) / _LANE)
-    return w1.astype(np.complex64), tw.astype(np.complex64), w2.astype(np.complex64)
+    return w1.astype(np.complex64), tw.astype(np.complex64)
 
 
 @lru_cache(maxsize=None)
@@ -152,21 +158,55 @@ def _consts_fft128(inverse: bool) -> np.ndarray:
 
 
 def ct_tables(n: int, inverse: bool) -> tuple[np.ndarray, ...]:
-    """The host tables of the radix kernels (K6, K7, K10's x pass) for a
-    Cooley-Tukey length n: w1 (n1, n1) and the twiddle (n1, 128) of
+    """The host tables of the radix kernels (K6, K7, K9, K10's x pass) for
+    a Cooley-Tukey length n: w1 (n1, n1) and the twiddle (n1, 128) of
     :func:`_consts_ct`, and the 128-point FFT's twiddles (128,)."""
-    w1, tw, _ = _consts_ct(n, inverse)
-    return w1, tw, _consts_fft128(inverse)
+    return (*_consts_ct(n, inverse), _consts_fft128(inverse))
+
+
+def dense_z_table(nz: int, inverse: bool) -> np.ndarray:
+    """The z pass's table (K10, K8's dense route): the dense nz-point DFT,
+    symmetric, stored as (nz, nzp) with nzp = nz rounded up to a multiple
+    of 8 and zeros past nz (the pass reads 8 outputs' entries as aligned
+    pairs)."""
+    wz = np.zeros((nz, -(-nz // 8) * 8), np.complex64)
+    wz[:, :nz] = _consts_dense(nz, inverse)
+    return wz
 
 
 def zx_tables(nz: int, nx: int, inverse: bool) -> tuple[np.ndarray, ...]:
     """The host tables K10 uploads for a (nz, ·, nx) volume: those of
-    :func:`ct_tables` for nx, and the dense z table, symmetric, stored as
-    (nz, nzp) with nzp = nz rounded up to a multiple of 8 and zeros past
-    nz (the z pass reads 8 outputs' entries as aligned pairs)."""
-    wz = np.zeros((nz, -(-nz // 8) * 8), np.complex64)
-    wz[:, :nz] = _consts_dense(nz, inverse)
-    return (*ct_tables(nx, inverse), wz)
+    :func:`ct_tables` for nx, and :func:`dense_z_table` for nz."""
+    return (*ct_tables(nx, inverse), dense_z_table(nz, inverse))
+
+
+# K8's radix route, n -> (R, M): n = R·M with M ∈ {8, 16}, a column of n
+# complex values a thread in registers: the lengths whose column fits
+# without spills (ptxas -v; 80 and 96 spill); every other length in 2..96
+# takes the z pass
+LEAD_RADIX = {8: (1, 8), 16: (1, 16), 24: (3, 8), 32: (2, 16), 40: (5, 8), 48: (3, 16), 64: (4, 16)}
+
+
+def leading_route(n: int) -> str:
+    """Which kernel K8 launches for a length n in 2..96: ``"radix"``
+    (``dft_lead_radix``) or ``"z"`` (K10's z pass)."""
+    if not supported_dense_axis(n):
+        raise ValueError(f"dft_leading: length {n} is outside 2..96")
+    return "radix" if n in LEAD_RADIX else "z"
+
+
+def lead_radix_table(n: int, inverse: bool) -> np.ndarray:
+    """K8's radix table for n = R·M (complex64, R·M + R·R entries): the
+    inter-stage twiddle W_n^(j1·k1) at j1·M + k1, then the R-point DFT
+    W_R^(j1·k2) at R·M + j1·R + k2, conjugated and scaled by 1/n for the
+    inverse."""
+    r, m = LEAD_RADIX[n]
+    sign = +1.0 if inverse else -1.0
+    tw = np.exp(sign * 2j * np.pi * np.outer(np.arange(r), np.arange(m)) / n)
+    wr = np.exp(sign * 2j * np.pi * np.outer(np.arange(r), np.arange(r)) / r)
+    if inverse:
+        wr = wr / n
+    return np.concatenate([tw.ravel(), wr.ravel()]).astype(np.complex64)
 
 
 @lru_cache(maxsize=None)
@@ -183,20 +223,20 @@ _device_consts: dict = {}
 
 
 def _on_device(kind: str, n, inverse: bool, device) -> tuple[torch.Tensor, ...]:
-    """The constant tables of ``kind`` ("ct" (K9), "radix" (K6, K7) or
-    "dense" for a length n, "zx" for n = (nz, nx)) as complex64 tensors
-    on ``device`` (interleaved (re, im) float pairs, as the kernels read
+    """The constant tables of ``kind`` ("radix" (K6, K7, K9), "lead" (K8)
+    for a length n, "zx" for n = (nz, nx)) as complex64 tensors on
+    ``device`` (interleaved (re, im) float pairs, as the kernels read
     them), uploaded once."""
     key = (kind, n, inverse, str(device))
     if key not in _device_consts:
-        if kind == "ct":
-            tables = _consts_ct(n, inverse)
-        elif kind == "radix":
+        if kind == "radix":
             tables = ct_tables(n, inverse)
         elif kind == "zx":
             tables = zx_tables(*n, inverse)
+        elif leading_route(n) == "radix":
+            tables = (lead_radix_table(n, inverse),)
         else:
-            tables = (_consts_dense(n, inverse),)
+            tables = (dense_z_table(n, inverse),)
         _device_consts[key] = tuple(
             torch.as_tensor(np.ascontiguousarray(t), device=device) for t in tables
         )
@@ -320,18 +360,20 @@ def dft_middle_cuda(xr, xi=None, *, inverse=False, real_output=False):
 
 
 def dft_leading_cuda(xr, xi=None, *, inverse=False, real_output=False):
-    """K8 on CUDA tensors; same contract as :func:`dft_leading`."""
+    """K8 on CUDA tensors; same contract as :func:`dft_leading`. One
+    launch, of the kernel :func:`leading_route` names for the length."""
     _check_pair(xr, xi, 3, "dft_leading")
     n = xr.shape[0]
-    if not supported_dense_axis(n):
-        raise ValueError(f"dft_leading: length {n} is outside 2..96")
-    (w,) = _on_device("dense", n, bool(inverse), xr.device)
+    route = leading_route(n)
+    (w,) = _on_device("lead", n, bool(inverse), xr.device)
+    radix = LEAD_RADIX[n][1] if route == "radix" else 0  # 0: the z pass, rows of w.shape[-1]
     yr, yi = _outputs(xr, inverse and real_output)
     status = _build.kernels().dft_leading_f32(
-        xr.data_ptr(), _ptr(xi), yr.data_ptr(), _ptr(yi), w.data_ptr(), n,
-        xr[0].numel(), _build.stream_handle(xr.device),
+        xr.data_ptr(), _ptr(xi), yr.data_ptr(), _ptr(yi), w.data_ptr(), n, radix, w.shape[-1],
+        xr[0].numel(), int(bool(inverse)), _build.stream_handle(xr.device),
     )
     _launched(status, "dft_leading")
+    leading_route_count[route] += 1
     return yr, yi
 
 
@@ -356,16 +398,20 @@ def dft_zx_cuda(xr, xi=None, *, inverse=False, real_output=False):
 
 
 def dft_mid_conv_cuda(xr, xi, hr, hi):
-    """K9 on CUDA tensors; same contract as :func:`dft_mid_conv`."""
+    """K9 on CUDA tensors; same contract as :func:`dft_mid_conv`. One call
+    is three launches (K7's pass A forward, the conv pass, pass A
+    inverse), counted once. The kernel takes any Cooley-Tukey y length
+    with x a multiple of 128; :func:`mid_conv_supported`, the reference's
+    gate, decides where the convolution takes it."""
     _check_pair(xr, xi, 3, "dft_mid_conv")
     _check_pair(hr, hi, 3, "dft_mid_conv")
     if hi is None or hr.shape != xr.shape or hr.device != xr.device:
         raise ValueError("dft_mid_conv: the OTF must be a complex pair of the input's shape and device")
-    if not mid_conv_supported(xr.shape):
-        raise ValueError(f"dft_mid_conv: shape {tuple(xr.shape)} fails mid_conv_supported")
     nz, n, nx = xr.shape
-    fwd = _on_device("ct", n, False, xr.device)
-    inv = _on_device("ct", n, True, xr.device)
+    if not supported_ct_axis(n) or nx % _LANE != 0:
+        raise ValueError(f"dft_mid_conv: shape {tuple(xr.shape)} needs n1*128 on axis 1, x % 128 == 0")
+    fwd = _on_device("radix", n, False, xr.device)
+    inv = _on_device("radix", n, True, xr.device)
     yr, yi = _outputs(xr, False)
     status = _build.kernels().dft_mid_conv_f32(
         xr.data_ptr(), _ptr(xi), hr.data_ptr(), hi.data_ptr(), yr.data_ptr(), yi.data_ptr(),

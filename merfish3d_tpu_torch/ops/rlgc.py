@@ -521,6 +521,19 @@ def _axis_retained_bounds(length: int, crop: int) -> list[tuple[int, int]]:
     return [(int(edges[i]), int(edges[i + 1])) for i in range(n)]
 
 
+def chunk_tiles(ny: int, nx: int, crop_yx: int, halo_y: int, halo_x: int):
+    """The lateral tiles of :func:`chunked_rlgc`, in its seed order: a list
+    of (retained (y0, y1, x0, x1), solved (ys, ye, xs, xe)); the solved
+    extent is the retained one grown by the halo and clipped to the
+    image."""
+    tiles = []
+    for y0, y1 in _axis_retained_bounds(ny, crop_yx):
+        for x0, x1 in _axis_retained_bounds(nx, crop_yx):
+            solved = (max(0, y0 - halo_y), min(ny, y1 + halo_y), max(0, x0 - halo_x), min(nx, x1 + halo_x))
+            tiles.append(((y0, y1, x0, x1), solved))
+    return tiles
+
+
 def chunked_rlgc(
     image,
     psf,
@@ -533,30 +546,29 @@ def chunked_rlgc(
     max_iters: int = 100,
     device=None,
     out: str = "host",
+    split_fn: Optional[SplitFn] = None,
 ):
     """Lateral-tiled RLGC: retained (non-overlapping) YX tiles of at most
     ``crop_yx`` cover the image, each solved with a discarded halo of the
-    PSF's full support and seed ``seed + tile index``; ``crop_yx=None``
-    takes :func:`auto_crop_yx`. An image within one tile is one
-    :func:`rlgc` solve."""
+    PSF's full support and seed ``seed + tile index``
+    (:func:`chunk_tiles`); ``crop_yx=None`` takes :func:`auto_crop_yx`.
+    An image within one tile is one :func:`rlgc` solve. ``split_fn`` is
+    passed to each tile's solve, with that tile's seed."""
     img = as_device_tensor(image, device).to(torch.float32)
     psf = _as_psf(psf)
     nz, ny, nx = img.shape
     if crop_yx is None:
         crop_yx = auto_crop_yx(img.shape, psf.shape)
-    kw = dict(safe_mode=safe_mode, limit=limit, max_delta=max_delta, max_iters=max_iters, out="device")
+    kw = dict(safe_mode=safe_mode, limit=limit, max_delta=max_delta, max_iters=max_iters, out="device",
+              split_fn=split_fn)
     if ny <= crop_yx and nx <= crop_yx:
         return _result(rlgc(img, psf, seed=seed, **kw), out)
-    halo_y, halo_x = int(psf.shape[1]), int(psf.shape[2])
     result = torch.empty_like(img)
-    tile_idx = 0
-    for y0, y1 in _axis_retained_bounds(ny, crop_yx):
-        for x0, x1 in _axis_retained_bounds(nx, crop_yx):
-            ys, ye = max(0, y0 - halo_y), min(ny, y1 + halo_y)
-            xs, xe = max(0, x0 - halo_x), min(nx, x1 + halo_x)
-            dec = rlgc(img[:, ys:ye, xs:xe], psf, seed=seed + tile_idx, **kw)
-            result[:, y0:y1, x0:x1] = dec[:, y0 - ys: y1 - ys, x0 - xs: x1 - xs]
-            tile_idx += 1
+    for tile_idx, ((y0, y1, x0, x1), (ys, ye, xs, xe)) in enumerate(
+        chunk_tiles(ny, nx, crop_yx, int(psf.shape[1]), int(psf.shape[2]))
+    ):
+        dec = rlgc(img[:, ys:ye, xs:xe], psf, seed=seed + tile_idx, **kw)
+        result[:, y0:y1, x0:x1] = dec[:, y0 - ys: y1 - ys, x0 - xs: x1 - xs]
     return _result(result, out)
 
 

@@ -13,10 +13,12 @@ second run is read; the first also uploads constants and plans
 ``torch.fft``). Then one readout batch — the 8 bits that share PSF 1,
 padded to (32, 1152, 1152) — is deconvolved by ``rlgc_batch`` (paired
 solves, 10 iterations, the production setting) under the profiler, after
-a short warm-up solve: device time by kernel (K10, K9, K4, K5, the DFT
-kernels of the OTF, copies, the other elementwise ops), the device busy
-share, device-to-host copies per volume-iteration, and the split
-sampler's own time (CUDA events). Then it runs the decode stage (normalization
+a short warm-up solve: device time by kernel (K10's two passes, K9's
+three, K4, K5, the DFT kernels of the OTF, copies, the other elementwise
+ops), K9's and K10's shares of the device time and of the wall, the
+device busy share and its complement (the host's share),
+device-to-host copies per volume-iteration, and the split sampler's own
+time (CUDA events). Then it runs the decode stage (normalization
 optimization, 3 iterations, + final decode) three times in one process,
 each on a freshly registered store:
 
@@ -62,6 +64,13 @@ calls only ``chip_smoke`` functions that predate K6's and K7's radix
 designs, so a copy of this file in a checkout of an older commit times
 that commit: run both checkouts in one call, in turns, to compare them on
 one card.
+
+    python3 profile_decode.py --lead-routes
+
+instead times K8 at every length of its radix route on a (n, 1024, 1024)
+complex pair of random data, forward, through the kernel its route
+launches (``dft_lead_radix``) and through K10's z pass, which every other
+length takes, with the byte bound: the measurement behind the route map.
 
     python3 profile_decode.py --ufish
 
@@ -194,13 +203,19 @@ def profile_registration(raw) -> None:
     log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=20))
 
 
-# device kernels by name fragment -> row of the decon breakdown
+# device kernels by name fragment -> row of the decon breakdown (first
+# match). K9 is three launches: K7's pass A forward and inverse around its
+# conv pass; K7's own pass A (the OTF spectrum, once a batch) falls in K9's
+# pass-A rows.
 DECON_KERNELS = (
-    ("dft_zx", "K10 dft_zx (forward and inverse of every convolution)"),
-    ("dft_mid_conv", "K9 dft_mid_conv"),
+    ("dft_zx_x", "K10 dft_zx x pass (forward and inverse of every convolution)"),
+    ("dft_zx_z", "K10 dft_zx z pass (forward and inverse of every convolution)"),
+    ("dft_mid_conv_b", "K9 dft_mid_conv conv pass (dft_mid_conv_b)"),
+    ("dft_middle_a<false>", "K9 dft_mid_conv pass A forward (dft_middle_a)"),
+    ("dft_middle_a<true>", "K9 dft_mid_conv pass A inverse (dft_middle_a)"),
     ("ratio_kld", "K4 ratio_kld"),
     ("update_select", "K5 update_select"),
-    ("dft_middle", "K7 dft_middle (OTF spectrum)"),
+    ("dft_middle_b", "K7 dft_middle pass B (OTF spectrum)"),
     ("Memcpy", "copies"),
     ("Memset", "copies"),
 )
@@ -229,13 +244,19 @@ def profile_decon(raw) -> None:
     n_iter = sum(iters)
     log(f"decon of 8 readout bits (32, 1152, 1152) padded, paired: {wall:.4f} s, iterations "
         f"{iters} ({n_iter} volume-iterations, {1e3 * wall / n_iter:.3f} ms each); device busy "
-        f"{busy:.4f} s = {busy / wall:.4f} of the wall")
+        f"{busy:.4f} s = {busy / wall:.4f} of the wall, idle (the host's share) "
+        f"{1 - busy / wall:.4f}")
     rows, calls = device_rows(events, DECON_KERNELS,
                               "other elementwise and reduction ops (split sampler included)")
     dtoh = sum(e.device_type == DeviceType.CUDA and "DtoH" in e.name for e in events)
+    total = sum(rows.values())
     for label, ms in sorted(rows.items(), key=lambda kv: -kv[1]):
         log(f"  {label:64s} {ms:10.3f} ms  {calls[label]:6d} launches  "
-            f"{ms / n_iter:8.3f} ms a volume-iteration")
+            f"{ms / n_iter:8.3f} ms a volume-iteration  {100 * ms / total:6.2f} % of device time")
+    for kernel in ("K9", "K10"):
+        ms = sum(v for k, v in rows.items() if k.startswith(kernel + " "))
+        log(f"  {kernel} in all: {ms / n_iter:.3f} ms a volume-iteration, {100 * ms / total:.2f} % of "
+            f"device time, {ms / 1e3 / wall:.4f} of the wall")
     log(f"  device-to-host copies: {dtoh} over {n_iter} volume-iterations")
     padded = pad_symmetric(stack[0].to(torch.float32), linear_fft_pad_width(stack.shape[1:], psf.shape))
     split_ms = chip_smoke.cuda_ms(lambda: binomial_split(padded, 7, 0))
@@ -341,7 +362,8 @@ CAMERA_KERNELS = (
     ("dft_zx_x", "K6 dft_trailing (dft_zx_x, a line a block)"),
     ("dft_middle_a", "K7 dft_middle pass A (dft_middle_a, n1-point stage)"),
     ("dft_middle_b", "K7 dft_middle pass B (dft_middle_b, 128-point FFTs)"),
-    ("dft_leading", "K8 dft_leading"),
+    ("dft_lead_radix", "K8 dft_leading (dft_lead_radix, a column a thread)"),
+    ("dft_zx_z", "K8 dft_leading, z-pass route (dft_zx_z)"),
     ("ratio_kld", "K4 ratio_kld"),
     ("update_select", "K5 update_select"),
     ("Memcpy", "copies"),
@@ -421,6 +443,45 @@ def camera_pair_times(raw) -> None:
     chip_smoke.check_camera_frame_dft(frame, psf)
 
 
+def lead_routes() -> None:
+    """K8 through both of its kernels at each length of the radix route
+    (see the module note); the two outputs must agree within the DFT
+    tolerance."""
+    import numpy as np
+    import torch
+
+    from merfish3d_tpu_torch import _build
+    from merfish3d_tpu_torch.ops import pfft
+
+    log = chip_smoke.log
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    for n in sorted(pfft.LEAD_RADIX):
+        shape = (n, 1024, 1024)
+        xr, xi = (torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device=dev) for _ in range(2))
+        wz = torch.as_tensor(pfft.dense_z_table(n, False), device=dev)
+        zr, zi = torch.empty_like(xr), torch.empty_like(xr)
+
+        def z_pass():
+            status = _build.kernels().dft_leading_f32(
+                xr.data_ptr(), xi.data_ptr(), zr.data_ptr(), zi.data_ptr(), wz.data_ptr(), n, 0, wz.shape[1],
+                xr[0].numel(), 0, _build.stream_handle(dev))
+            _build.check(status, "dft_leading_f32")
+
+        yr, yi = pfft.dft_leading_cuda(xr, xi)
+        z_pass()
+        torch.cuda.synchronize()
+        scale = max(yr.abs().max().item(), yi.abs().max().item())
+        err = max((yr - zr).abs().max().item(), (yi - zi).abs().max().item())
+        chip_smoke.require(err <= chip_smoke.DFT_RTOL * scale, f"K8's two routes disagree at n = {n}")
+        radix_ms, z_ms = chip_smoke.cuda_ms(lambda: pfft.dft_leading_cuda(xr, xi)), chip_smoke.cuda_ms(z_pass)
+        bound_ms = np.prod(shape) * 16 / chip_smoke.HBM_BYTES_PER_S * 1e3
+        log(f"K8 n = {n} (R, M) = {pfft.LEAD_RADIX[n]} on {shape}: dft_lead_radix {radix_ms:.3f} ms, "
+            f"z pass {z_ms:.3f} ms, byte bound {bound_ms:.3f} ms; routes {err / scale:.2e} x max|X| apart")
+        del xr, xi, yr, yi, zr, zi
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -444,6 +505,9 @@ def main() -> int:
         return 0
     if "--camera-routes" in sys.argv[1:]:
         camera_routes(raw)
+        return 0
+    if "--lead-routes" in sys.argv[1:]:
+        lead_routes()
         return 0
     if "--camera-pair" in sys.argv[1:]:
         camera_pair_times(raw)

@@ -208,22 +208,55 @@ def test_dft_wrappers_refuse_bad_input(cuda):
         pfft.dft_zx_cuda(torch.zeros((2, 8, 256)))  # CPU tensor
     with pytest.raises(TypeError):
         pfft.dft_leading_cuda(torch.zeros((8, 8, 128), device=cuda, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        pfft.dft_leading_cuda(torch.zeros((97, 8, 128), device=cuda))
+
+
+@pytest.mark.parametrize("n", range(2, 97))
+def test_k8_lengths_match_plain(cuda, n):
+    """K8 at every length it takes, through the kernel its route names (the
+    radix route or K10's z pass): forward on complex and real input,
+    inverse to complex and real output, at a small ragged plane (600
+    columns), within 3e-5 x max|X|."""
+    from merfish3d_tpu_torch.ops import pfft
+
+    rng = np.random.default_rng(n)
+    shape = (n, 6, 100)
+    route = pfft.leading_route(n)
+    before = pfft.leading_route_count[route]
+    for complex_in in (False, True):
+        xr, xi = _pair(rng, shape, cuda, complex_in)
+        fk, fp = pfft.dft_leading_cuda(xr, xi), pfft.dft_leading_plain(xr, xi)
+        torch.cuda.synchronize()
+        _assert_pair_close(fk, fp, max(fp[0].abs().max().item(), fp[1].abs().max().item()))
+        for real_output in (False, True):
+            ik = pfft.dft_leading_cuda(*fp, inverse=True, real_output=real_output)
+            ip = pfft.dft_leading_plain(*fp, inverse=True, real_output=real_output)
+            torch.cuda.synchronize()
+            assert (ik[1] is None) == real_output
+            _assert_pair_close(ik, ip, max(ip[0].abs().max().item(), xr.abs().max().item()))
+    assert pfft.leading_route_count[route] == before + 6
 
 
 # ------------------------------------------------------------ RLGC kernels
-@pytest.mark.parametrize("shape", [(3, 256, 384), (4, 1152, 256), (2, 2304, 128)])
+@pytest.mark.parametrize(
+    "shape",
+    [(3, 256, 384), (4, 1152, 256), (2, 2176, 128), (2, 2304, 128), (2, 3072, 256)],
+)
 def test_k9_matches_plain(cuda, shape):
     """K9 against its plain version within the DFT tolerance, 3e-5 x max|y|,
-    up to the gate's largest y length (2304: 156 KB of shared memory)."""
+    at n1 = 2, 9 (the RLGC shape), 17, 18 (the gate's largest y length) and
+    24 (the kernel's largest, past the gate), complex and real input."""
     from merfish3d_tpu_torch.ops import pfft
 
-    assert pfft.mid_conv_supported(shape)
+    assert pfft.mid_conv_supported(shape) == (shape[1] <= 2304)
     rng = np.random.default_rng(6)
-    xr, xi = _pair(rng, shape, cuda)
     hr, hi = _pair(rng, shape, cuda)
-    k, p = pfft.dft_mid_conv_cuda(xr, xi, hr, hi), pfft.dft_mid_conv_plain(xr, xi, hr, hi)
-    torch.cuda.synchronize()
-    _assert_pair_close(k, p, max(p[0].abs().max().item(), p[1].abs().max().item()))
+    for complex_in in (True, False):
+        xr, xi = _pair(rng, shape, cuda, complex_in)
+        k, p = pfft.dft_mid_conv_cuda(xr, xi, hr, hi), pfft.dft_mid_conv_plain(xr, xi, hr, hi)
+        torch.cuda.synchronize()
+        _assert_pair_close(k, p, max(p[0].abs().max().item(), p[1].abs().max().item()))
 
 
 _EW_CASES = [
@@ -279,6 +312,8 @@ def test_rlgc_wrappers_refuse_bad_input(cuda):
         pfft.dft_mid_conv_cuda(x, x, x, None)  # the OTF must be complex
     with pytest.raises(ValueError):
         pfft.dft_mid_conv_cuda(*(torch.zeros((2, 100, 128), device=cuda) for _ in range(4)))
+    with pytest.raises(ValueError):
+        pfft.dft_mid_conv_cuda(*(torch.zeros((2, 256, 96), device=cuda) for _ in range(4)))
 
 
 def test_rlgc_solve_on_card_matches_cpu(cuda):

@@ -111,7 +111,9 @@ def test_predicates_match_reference(shape):
 def test_constants_and_scramble_match_reference():
     for n in (256, 896, 1920, 3072):
         for inverse in (False, True):
-            for a, b in zip(tpfft._consts_ct(n, inverse), jpfft._consts_ct(n, inverse)):
+            port = tpfft._consts_ct(n, inverse)
+            assert len(port) == 2  # w1 and the twiddle; no kernel reads a dense w2 table
+            for a, b in zip(port, jpfft._consts_ct(n, inverse)[:2]):
                 np.testing.assert_array_equal(a, b)
         np.testing.assert_array_equal(tpfft.scramble_perm(n), jmm.scramble_perm(n))
         assert tpfft.fft_axis_split(n) == jmm.fft_axis_split(n)
@@ -198,12 +200,14 @@ def test_roundtrip_and_natural_pairs():
     np.testing.assert_allclose(back[0].numpy(), xr, atol=2e-5 * np.abs(xr).max())
 
 
-# ------------------------ the radix factorizations of K6, K7 and K10, modelled
-# A numpy model of csrc/pfft.cu's dft_zx_x (K6, K10's x pass), dft_zx_z,
-# dft_middle_a / dft_middle_b (K7) and csrc/fft128.cuh, index for index and
-# driven by the tables the wrappers upload (tpfft.ct_tables,
-# tpfft.zx_tables), so an index or table error in the design shows on CPU.
-# Its butterfly constants are the header's.
+# ---------------- the radix factorizations of K6, K7, K8, K9 and K10, modelled
+# A numpy model of csrc/pfft.cu's dft_zx_x (K6, K10's x pass), dft_zx_z
+# (K10's z pass, K8's dense route), dft_middle_a / dft_middle_b (K7),
+# dft_mid_conv_b (K9), dft_lead_radix (K8) and csrc/fft128.cuh, index for
+# index and driven by the tables the wrappers upload (tpfft.ct_tables,
+# tpfft.zx_tables, tpfft.dense_z_table, tpfft.lead_radix_table), so an
+# index or table error in the design shows on CPU. Its butterfly constants
+# are the header's.
 _R2, _C8, _S8 = np.float32(0.70710678118654752), np.float32(0.92387953251128676), \
     np.float32(0.38268343236508977)
 
@@ -358,21 +362,49 @@ def _mid_pass_a(x, w1, tw, inverse):
     return np.einsum("zkqx,kp->zpqx", x, w1)
 
 
-def _mid_pass_b(y, w128, tw, inverse):
-    """dft_middle_b on (nz, n1, 128, nx): each 32-column tile of each
-    group k staged transposed, the FFT of column c run by the lanes the
-    map gives it; inverse with the twiddle on the way out. Every tile
-    column the map misses stays NaN."""
+def _mid_stage(y, x0):
+    """mid_stage: the 32-column tile at x0 of every (z, group k), staged
+    transposed as (nz, n1, column, q)."""
+    return y[..., x0:x0 + 32].swapaxes(-1, -2)
+
+
+def _mid_transform(S, w128, inverse):
+    """mid_transform: the FFT of tile column c run by the lanes the map
+    gives it; every column the map misses stays NaN."""
     cols = _mid_b_columns().ravel()
+    T = np.full_like(S, np.nan)
+    T[..., cols, :] = _fft128_model(S[..., cols, :], w128, inverse)
+    return T
+
+
+def _mid_tiles(y, step):
+    """A pass-B launch over (nz, n1, 128, nx): ``step(staged tile, x0)``
+    on each 32-column tile, stored back (mid_store's layout)."""
     out = np.full_like(y, np.nan)
     for x0 in range(0, y.shape[-1], 32):
-        S = y[..., x0:x0 + 32].swapaxes(-1, -2)  # (nz, n1, column, q)
-        T = np.full_like(S, np.nan)
-        T[..., cols, :] = _fft128_model(S[..., cols, :], w128, inverse)
-        if inverse:
-            T = T * tw[None, :, None, :]
-        out[..., x0:x0 + 32] = T.swapaxes(-1, -2)
+        out[..., x0:x0 + 32] = step(_mid_stage(y, x0), x0).swapaxes(-1, -2)
     return out
+
+
+def _mid_pass_b(y, w128, tw, inverse):
+    """dft_middle_b: stage, transform, and the twiddle on the way out for
+    the inverse."""
+    def step(S, x0):
+        T = _mid_transform(S, w128, inverse)
+        return T * tw[None, :, None, :] if inverse else T
+
+    return _mid_tiles(y, step)
+
+
+def _mid_conv_pass_b(y, h, w128f, w128i, twi):
+    """dft_mid_conv_b: stage, forward transform, the product with the OTF
+    staged from the same (z, k*128 + m, x) coordinates, inverse transform,
+    the inverse twiddle on the way out."""
+    def step(S, x0):
+        T = _mid_transform(S, w128f, False) * _mid_stage(h, x0)
+        return _mid_transform(T, w128i, True) * twi[None, :, None, :]
+
+    return _mid_tiles(y, step)
 
 
 def _dft_middle_model(x, inverse):
@@ -399,12 +431,92 @@ def test_k7_passes_model_matches_plain(n1):
                       tpfft.dft_middle_plain(_t(xr), _t(xi), inverse=True))
 
 
+def _dft_mid_conv_model(x, h):
+    """K9 as its three launches run it along axis 1 of (nz, n, nx): K7's
+    pass A forward, the conv pass in place, pass A inverse in place."""
+    nz, n, nx = x.shape
+    w1f, twf, w128f = _c128(tpfft.ct_tables(n, False))
+    w1i, twi, w128i = _c128(tpfft.ct_tables(n, True))
+    grouped = (nz, n // 128, 128, nx)
+    y = _mid_pass_a(x.reshape(grouped), w1f, twf, False)
+    y = _mid_conv_pass_b(y, h.reshape(grouped), w128f, w128i, twi)
+    return _mid_pass_a(y, w1i, twi, True).reshape(nz, n, nx)
+
+
+@pytest.mark.parametrize("n1", [2, 9, 17, 24])
+def test_k9_passes_model_matches_plain(n1):
+    """The model of K9's three passes, the OTF product at the scrambled
+    coordinates of the forward spectrum, at dft_mid_conv_plain within
+    1e-5 x max|y|."""
+    xr, xi = _pair((2, 128 * n1, 64), seed=300 + n1)
+    hr, hi = _pair((2, 128 * n1, 64), seed=400 + n1)
+    got = _dft_mid_conv_model(xr.astype(np.float64) + 1j * xi, hr.astype(np.float64) + 1j * hi)
+    assert np.isfinite(got).all()
+    _pair_model_check(got, tpfft.dft_mid_conv_plain(_t(xr), _t(xi), _t(hr), _t(hi)))
+
+
+def _lead_model(x, inverse):
+    """K8 on axis 0 of (n, ...) by its route. Radix (dft_lead_radix):
+    u[j1][j2] = x[R*j2 + j1]; the M-point DFT of each j1 (the header's
+    butterflies), the twiddle tab[j1*M + k1], then X[k1 + M*k2] = sum_j1
+    u[j1][k1] tab[R*M + j1*R + k2]. Dense (dft_zx_z): the z table read by
+    rows, W[j][k] for output k."""
+    x = x.astype(np.complex128)
+    n = x.shape[0]
+    if tpfft.leading_route(n) == "z":
+        wz = tpfft.dense_z_table(n, inverse)
+        assert wz.shape == (n, -(-n // 8) * 8) and not wz[:, n:].any()
+        return np.einsum("jk,j...->k...", wz[:, :n].astype(np.complex128), x)
+    r, m = tpfft.LEAD_RADIX[n]
+    tab = tpfft.lead_radix_table(n, inverse).astype(np.complex128)
+    assert tab.shape == (r * m + r * r,)
+    tw, wr = tab[:r * m].reshape(r, m), tab[r * m:].reshape(r, r)
+    u = np.moveaxis(x.reshape(m, r, -1), 0, -1)  # [j1, column, j2]
+    u = (_dft8 if m == 8 else _dft16)(u, inverse) * tw[:, None, :]  # [j1, column, k1]
+    return np.einsum("jck,jl->lkc", u, wr).reshape(x.shape)  # position k1 + M*k2
+
+
+@pytest.mark.parametrize("real", [False, True])
+@pytest.mark.parametrize("n", sorted(tpfft.LEAD_RADIX) + [2, 5, 12, 27, 80, 96])
+def test_k8_model_matches_plain(n, real):
+    """K8's model by route, forward (real input when ``real``) and inverse
+    (real output when ``real``), at dft_leading_plain within 1e-5 x
+    max|X|: every length of the radix route, and lengths of the z pass."""
+    xr, xi = _pair((n, 3, 8), seed=500 + n)
+    fwd_in = xr.astype(np.float64) + (0 if real else 1j * xi)
+    want = tpfft.dft_leading_plain(_t(xr), None if real else _t(xi))
+    _pair_model_check(_lead_model(fwd_in, False), want)
+    back = tpfft.dft_leading_plain(_t(xr), _t(xi), inverse=True, real_output=real)
+    assert (back[1] is None) == real
+    _pair_model_check(_lead_model(xr.astype(np.float64) + 1j * xi, True), back)
+
+
+def test_k8_route_map():
+    """Every length K8 takes (2..96) goes to exactly one kernel, by the
+    length alone: the radix route for n = R*M <= 64 with M in {8, 16} (the
+    kernel's instantiations), the z pass for every other; the camera crop
+    (32) and frame (48) take the radix route, and lengths outside 2..96
+    are refused."""
+    routes = {n: tpfft.leading_route(n) for n in range(2, 97)}
+    assert set(routes.values()) == {"radix", "z"}
+    assert {n for n, r in routes.items() if r == "radix"} == set(tpfft.LEAD_RADIX) == \
+        {8, 16, 24, 32, 40, 48, 64}
+    for n, (r, m) in tpfft.LEAD_RADIX.items():
+        assert r * m == n and m in (8, 16) and 1 <= r <= 5
+    assert routes[32] == routes[48] == "radix"
+    for n in (0, 1, 97):
+        with pytest.raises(ValueError):
+            tpfft.leading_route(n)
+
+
 def test_k7_pass_b_shared_memory_is_conflict_free():
-    """mid_group_tile's shared-memory addresses (a column every 129 float2):
-    the row-wise staging stores and final loads, and fft128::transform's
-    four access phases on the columns the map gives each group of 8 lanes.
-    Every half-warp's 16 float2 accesses fall in 16 distinct bank pairs
-    (address mod 16), and the map covers each of the 32 columns once."""
+    """Pass B's shared-memory addresses (a column every 129 float2), which
+    K7's pass B and K9's conv pass share: the row-wise staging stores, K9's
+    OTF product (the same row pattern) and the final loads, and
+    fft128::transform's four access phases on the columns the map gives
+    each group of 8 lanes. Every half-warp's 16 float2 accesses fall in 16
+    distinct bank pairs (address mod 16), and the map covers each of the
+    32 columns once."""
     gs = 129
     cols = _mid_b_columns()
     assert sorted(cols.ravel().tolist()) == list(range(32))
@@ -415,7 +527,7 @@ def test_k7_pass_b_shared_memory_is_conflict_free():
         for h in (0, 16):
             assert len(set((addr[h:h + 16] % 16).tolist())) == 16, addr
 
-    for r in range(128):  # lane = column, one row a warp access
+    for r in range(128):  # stage, K9's product, store: lane = column, one row a warp access
         conflict_free(lanes * gs + r)
     for warp in range(8):
         base = cols[warp][lanes >> 3] * gs
