@@ -10,7 +10,9 @@ Run from the root of a checkout. Phases, each raising on failure:
    native host ops (g++); then the inputs, rendered with numpy: the
    production tile and a camera-geometry bead pair;
 3. each kernel against its plain torch version on the card, at the
-   shapes the main path gives it (K3 on one 8-plane chunk, K1 and K2 on
+   shapes the main path gives it (K3 on one 8-plane chunk, packed and as
+   the view ``decode_volume`` passes, with the V route and the codebook's
+   padding logged; K1 and K2 on
    the whole production tile; K10 and K7 on the (16, 896, 896) stage-2
    crop of a production fiducial round; K6, K7 and K8 on a (32, 1920,
    1920) crop of the camera pair; K10 at the largest plane its gate
@@ -276,9 +278,19 @@ def check_decode_kernels(raw) -> list[dict]:
     taps = {s: 2 * int(4.0 * s + 0.5) + 1 for s in sigma}  # gaussian_lowpass, truncate 4
     rows = []
 
-    # K3 at decode_volume's chunk: 8 lowpassed planes of the tile
-    traces = gaussian_lowpass(tile, sigma=sigma)[:, :8].reshape(nbits, -1).contiguous()
+    def route(what):
+        packed = dec.pack_codebook(cbt)
+        log(f"  {what} route: V = {dec.voxels_per_thread(nbits)} voxels a thread ({nbits} bits); "
+            f"codebook packed {tuple(cbt.shape)} -> {tuple(packed.shape)} "
+            f"({packed.shape[1] - nbits} zero pad bits)")
+
+    # K3 at decode_volume's chunk: 8 lowpassed planes of the tile, packed and
+    # as the view decode_volume passes (rows a whole bit volume apart)
+    lowpassed = gaussian_lowpass(tile, sigma=sigma)
+    view = lowpassed[:, :8].reshape(nbits, -1)
+    traces = view.contiguous()
     log(f"K3 decode_chunk_f32 on traces {tuple(traces.shape)}")
+    route("K3")
     k = dec.decode_chunk_cuda(traces, cbt, bg, nm)
     p = dec.decode_chunk_plain(traces, cbt, bg, nm)
     torch.cuda.synchronize()
@@ -293,7 +305,11 @@ def check_decode_kernels(raw) -> list[dict]:
     shape = (nbits, traces.shape[1])
     _ids_agree(dec.assign_pixels(*k, shape, **thr)[0], dec.assign_pixels(*p, shape, **thr)[0],
                unit, mag, cbt, thr, "K3 decoded")
-    del k, p, unit, mag
+    kv = dec.decode_chunk_cuda(view, cbt, bg, nm)
+    same = all(torch.equal(a, b) for a, b in zip(kv, k))
+    log(f"  the view (bit stride {view.stride(0)}) gives the packed chunk's outputs bit for bit: {same}")
+    require(same, "K3 on the view disagrees with K3 on the packed chunk")
+    del k, p, kv, unit, mag
     rows.append(row(
         "decode_chunk_f32 (K3)", "decode.cu", "merfish3d_tpu/ops/decode.py:96", err,
         lambda: dec.decode_chunk_cuda(traces, cbt, bg, nm, want_scaled=False),
@@ -301,7 +317,9 @@ def check_decode_kernels(raw) -> list[dict]:
         # reads bits x 4 B, writes id, dist, mag (12 B) a pixel; a 2 x words x bits projection
         traces.numel() * 4 + traces.shape[1] * 12, traces.numel() * 2 * words,
     ))
-    del traces
+    view_ms = cuda_ms(lambda: dec.decode_chunk_cuda(view, cbt, bg, nm, want_scaled=False))
+    log(f"  time on the view: kernel {view_ms:.3f} ms (packed {rows[-1]['ms']:.3f} ms)")
+    del traces, view, lowpassed
 
     # K1, K2 and the pair on the whole tile: fused_decode_volume hands the
     # kernels the whole (bits, 16, 1024, 1024) tile, since its working set
@@ -322,6 +340,7 @@ def check_decode_kernels(raw) -> list[dict]:
     ))
 
     log(f"K2 x_lowpass_decode_f32 on the plain K1 output {tuple(inter.shape)}")
+    route("K2")
     kw = dict(sigma_x=sigma[2], **thr)
     k = fd.x_lowpass_decode_cuda(inter, cbt, bg, nm, **kw)
     p = fd.x_lowpass_decode_plain(inter, cbt, bg, nm, **kw)

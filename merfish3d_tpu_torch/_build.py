@@ -28,7 +28,7 @@ _PKG = Path(__file__).parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("decode.cu", "fused_decode.cu", "pfft.cu", "rlgc.cu", "conv2d.cu", "conv2d_mma.cu")
-HEADERS = ("fft128.cuh",)  # included by the sources; part of the library's hash
+HEADERS = ("fft128.cuh", "decode_core.cuh")  # included by the sources; part of the library's hash
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -108,7 +108,7 @@ def _compile(target: Path) -> None:
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    lib.decode_chunk_f32.argtypes = [p, p, p, p, i, i, ll, p, p, p, p, p]
+    lib.decode_chunk_f32.argtypes = [p, p, p, p, i, i, ll, ll, p, p, p, p, p]
     lib.decode_chunk_f32.restype = i
     lib.zy_lowpass_f32.argtypes = [p, p, p, p, i, p, p, i, i, i, i, i, p, p]
     lib.zy_lowpass_f32.restype = i

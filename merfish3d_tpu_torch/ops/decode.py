@@ -50,10 +50,31 @@ def decode_chunk_plain(traces, codebook_t, background, normalization, *, want_sc
     return best.to(torch.int32), dist, mag, scaled if want_scaled else None
 
 
+def voxels_per_thread(bits: int) -> int:
+    """V, the voxels a thread of K2 or K3 decodes (``csrc/decode_core.cuh``):
+    4 while a trace fits 16 registers, else 2."""
+    return 4 if bits <= 16 else 2
+
+
+def pack_codebook(codebook_t: torch.Tensor) -> torch.Tensor:
+    """The (words, bits_p) codebook K2 and K3 read as float4 groups:
+    ``codebook_t.T`` with bits padded by exact zeros to ``bits_p``, the next
+    multiple of 4. The kernels' padded traces are zero as well, so the pad
+    adds fmaf(0, 0, s) == s to every sum."""
+    bits, words = codebook_t.shape
+    packed = torch.zeros((words, -(-bits // 4) * 4), dtype=torch.float32, device=codebook_t.device)
+    packed[:, :bits] = codebook_t.T
+    return packed
+
+
 def check_decode_inputs(traces, codebook_t, background, normalization) -> None:
-    """Raise on anything kernel K3 does not take."""
+    """Raise on anything kernel K3 does not take. ``traces`` may be a view
+    whose rows lie any distance apart (a z-chunk of a (bits, Z, Y, X)
+    volume), as long as each row is contiguous."""
     if traces.ndim != 2 or not 1 <= traces.shape[0] <= 32:
         raise ValueError(f"traces must be (bits<=32, N), got {tuple(traces.shape)}")
+    if traces.shape[1] > 1 and traces.stride(1) != 1:
+        raise ValueError("traces rows must each be contiguous")
     bits = traces.shape[0]
     for name, t, shape in (
         ("traces", traces, None),
@@ -65,14 +86,14 @@ def check_decode_inputs(traces, codebook_t, background, normalization) -> None:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if t.device != traces.device:
             raise ValueError(f"{name} is on {t.device}, traces on {traces.device}")
-        if not t.is_contiguous():
+        if name != "traces" and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if shape is not None and tuple(t.shape) != shape:
             raise ValueError(f"{name} shape {tuple(t.shape)} != {shape}")
     if codebook_t.ndim != 2 or codebook_t.shape[0] != bits or codebook_t.shape[1] < 1:
         raise ValueError(f"codebook_t must be ({bits}, words), got {tuple(codebook_t.shape)}")
     if (codebook_t.shape[1] + 2) * bits * 4 > 48 * 1024:
-        raise ValueError("codebook does not fit the kernel's 48 KB of shared memory")
+        raise ValueError("codebook too large for the kernels: (words + 2) * bits * 4 B > 48 KB")
 
 
 def decode_chunk_cuda(traces, codebook_t, background, normalization, *, want_scaled=True):
@@ -83,14 +104,15 @@ def decode_chunk_cuda(traces, codebook_t, background, normalization, *, want_sca
     check_decode_inputs(traces, codebook_t, background, normalization)
     bits, n = traces.shape
     lib = _build.kernels()
-    cb = codebook_t.T.contiguous()  # (words, bits) rows for shared memory
-    best = torch.empty(n, dtype=torch.int32, device=traces.device)
-    dist = torch.empty(n, dtype=torch.float32, device=traces.device)
-    mag = torch.empty(n, dtype=torch.float32, device=traces.device)
-    scaled = torch.empty_like(traces) if want_scaled else None
+    cb = pack_codebook(codebook_t)
+    dev = traces.device
+    best = torch.empty(n, dtype=torch.int32, device=dev)
+    dist = torch.empty(n, dtype=torch.float32, device=dev)
+    mag = torch.empty(n, dtype=torch.float32, device=dev)
+    scaled = torch.empty((bits, n), dtype=torch.float32, device=dev) if want_scaled else None
     status = lib.decode_chunk_f32(
         traces.data_ptr(), cb.data_ptr(), background.data_ptr(),
-        normalization.data_ptr(), bits, cb.shape[0], n, best.data_ptr(),
+        normalization.data_ptr(), bits, cb.shape[0], n, traces.stride(0), best.data_ptr(),
         dist.data_ptr(), mag.data_ptr(),
         scaled.data_ptr() if scaled is not None else None,
         _build.stream_handle(traces.device),
@@ -168,7 +190,8 @@ def decode_volume(
     device=None,
 ):
     """Decode a tile volume in z-chunks (device memory bounded by
-    ``bits × z_chunk × Y × X`` per launch). Returns host numpy arrays
+    ``bits × z_chunk × Y × X`` per launch). A float32 volume's chunks go to K3
+    as views, without a copy. Returns host numpy arrays
     (decoded int16, magnitude f16, distance f16, scaled f16 or None), as
     the reference does. ``device`` defaults to the input tensor's, and to
     ``cuda`` for a host array."""
@@ -184,9 +207,8 @@ def decode_volume(
     scaled = np.empty((bits, nz, ny, nx), np.float16) if return_scaled else None
     for z0 in range(0, nz, z_chunk):
         z1 = min(z0 + z_chunk, nz)
-        block = vol[:, z0:z1].to(torch.float32).contiguous()
         d, m, di, sc = decode_planes(
-            block, cb_t, bg, norm,
+            vol[:, z0:z1].to(torch.float32), cb_t, bg, norm,
             magnitude_threshold=tuple(magnitude_threshold),
             distance_threshold=float(distance_threshold),
             return_scaled=return_scaled,

@@ -16,6 +16,8 @@ Outputs: decoded int16 (Z, Y, X), magnitude and distance float16
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -27,6 +29,7 @@ from .decode import (
     check_decode_inputs,
     decode_chunk_plain,
     normalize_codebook,
+    pack_codebook,
 )
 from .filters import _gaussian_kernel1d, gaussian_lowpass, symmetric_pad_index
 
@@ -80,6 +83,14 @@ def _index_map(n: int, kernel: np.ndarray, device) -> torch.Tensor:
     return torch.as_tensor(symmetric_pad_index(n, r, r).astype(np.int32), device=device)
 
 
+@functools.lru_cache(maxsize=64)
+def _x_taps(nx: int, sigma_x: float, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2's x taps and symmetric pad index map on ``device``, uploaded once
+    a row length and sigma (each upload from host memory costs a copy)."""
+    kx = _kernel_or_identity(sigma_x)
+    return torch.as_tensor(kx, device=device), _index_map(nx, kx, device)
+
+
 def _require_cuda(t: torch.Tensor, name: str) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{name} needs a CUDA tensor, got one on {t.device}")
@@ -113,24 +124,23 @@ def x_lowpass_decode_cuda(
     inter, codebook_t, background, normalization, *, sigma_x,
     magnitude_threshold, distance_threshold,
 ):
-    """Kernel K2 on the output of K1."""
+    """Kernel K2 on the output of K1 (the codebook uploaded as
+    :func:`~.decode.pack_codebook` lays it out)."""
     global launch_count_x_decode
     _require_cuda(inter, "x_lowpass_decode_cuda")
     _check_volume(inter, kernel=True)
     bits, nz, ny, nx = inter.shape
     check_decode_inputs(inter.reshape(bits, -1), codebook_t, background, normalization)
     dev = inter.device
-    kx = _kernel_or_identity(sigma_x)
-    kx_t = torch.as_tensor(kx, device=dev)
-    xmap = _index_map(nx, kx, dev)
-    cb = codebook_t.T.contiguous()
+    kx_t, xmap = _x_taps(nx, float(sigma_x), dev)
+    cb = pack_codebook(codebook_t)
     decoded = torch.empty((nz, ny, nx), dtype=torch.int16, device=dev)
     mag = torch.empty((nz, ny, nx), dtype=torch.float16, device=dev)
     dist = torch.empty((nz, ny, nx), dtype=torch.float16, device=dev)
     scaled = torch.empty((bits, nz, ny, nx), dtype=torch.float16, device=dev)
     lo, hi = magnitude_threshold
     status = _build.kernels().x_lowpass_decode_f32(
-        inter.data_ptr(), kx_t.data_ptr(), xmap.data_ptr(), len(kx),
+        inter.data_ptr(), kx_t.data_ptr(), xmap.data_ptr(), kx_t.numel(),
         cb.data_ptr(), background.data_ptr(), normalization.data_ptr(),
         bits, cb.shape[0], nz, ny, nx, float(lo), float(hi),
         float(distance_threshold), decoded.data_ptr(), mag.data_ptr(),

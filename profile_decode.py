@@ -28,7 +28,9 @@ each on a freshly registered store:
    ``torch.cuda.synchronize()`` at its entry and exit so device work is
    charged to the section that queued it;
 3. profiled: ``torch.profiler`` over CPU and CUDA. The device busy share
-   is the union of the device (kernel and copy) intervals over the wall.
+   is the union of the device (kernel and copy) intervals over the wall;
+   K1's, K2's and K3's device time and launches, and their shares of the
+   device time.
    The profiler's own "Activity Buffer Request" row in the table is a
    host event and is not among them.
 
@@ -72,6 +74,19 @@ complex pair of random data, forward, through the kernel its route
 launches (``dft_lead_radix``) and through K10's z pass, which every other
 length takes, with the byte bound: the measurement behind the route map.
 
+    python3 profile_decode.py --decode-kernels
+
+instead times K2 and K3 on the production tile with the settings of
+``chip_smoke.py``'s decode checks: K3 on the first 8-plane chunk of the
+tile's lowpass, packed and as the view ``decode_volume`` passes (an
+older checkout that refuses the view says so), K2 on the plain K1 output
+of the tile, and ``decode_volume``'s wall over the whole lowpassed tile;
+then both kernels' device time under the profiler, with all codewords and
+with the first alone (the work outside the codebook loop).
+It calls only wrappers that predate this mode, so a copy of this file in
+a checkout of an older commit times that commit: run both checkouts in
+one call, in turns, to compare them on one card.
+
     python3 profile_decode.py --ufish
 
 instead runs the full-width c32 U-FISH predictor (seeded weights, the
@@ -109,6 +124,11 @@ SECTIONS = (
     ("decoder.PixelDecoder", "_iterative_normalization_vectors", "iterative vectors"),
     ("decoder.PixelDecoder", "_apply_filter_method", "blank-fraction filter"),
 )
+
+
+# the decode kernels by the fragment of their device names
+DECODE_KERNELS = (("zy_lowpass", "K1 zy_lowpass"), ("x_lowpass_decode", "K2 x_lowpass_decode"),
+                  ("decode_chunk", "K3 decode_chunk"))
 
 
 def _timed(fn, label, acc):
@@ -482,6 +502,77 @@ def lead_routes() -> None:
         torch.cuda.empty_cache()
 
 
+def decode_kernel_times(raw) -> None:
+    """K2 and K3 at the main path's shapes (see the module note)."""
+    import statistics
+
+    import torch
+
+    from merfish3d_tpu_torch.ops import decode as dec
+    from merfish3d_tpu_torch.ops import fused_decode as fd
+    from merfish3d_tpu_torch.ops.filters import gaussian_lowpass
+
+    log = chip_smoke.log
+    dev = torch.device("cuda")
+    sigma = (3.0, 1.0, 1.0)
+    thr = dict(magnitude_threshold=(0.9, 10.0), distance_threshold=dec.caller_thresholds(4)[0])
+    nbits = raw.bits.shape[1]
+    codebook = raw.codebook.astype("float32")
+    cbt = torch.as_tensor(dec.normalize_codebook(codebook).T.copy(), device=dev)
+    bg = torch.full((nbits,), 40.0, device=dev)
+    nm = torch.full((nbits,), 250.0, device=dev)
+    tile = torch.as_tensor(raw.bits[0], device=dev).to(torch.float32)
+    lp = gaussian_lowpass(tile, sigma=sigma)
+    view = lp[:, :8].reshape(nbits, -1)
+    packed = view.contiguous()
+    ms = chip_smoke.cuda_ms(lambda: dec.decode_chunk_cuda(packed, cbt, bg, nm, want_scaled=False))
+    log(f"K3 on the packed chunk {tuple(packed.shape)}: {ms:.4f} ms")
+    try:
+        ms = chip_smoke.cuda_ms(lambda: dec.decode_chunk_cuda(view, cbt, bg, nm, want_scaled=False))
+        log(f"K3 on the view (bit stride {view.stride(0)}): {ms:.4f} ms")
+    except ValueError as e:
+        log(f"K3 on the view: refused ({e})")
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dec.decode_volume(lp, codebook, bg.cpu().numpy(), nm.cpu().numpy(), return_scaled=False, **thr)
+        walls.append(time.perf_counter() - t0)
+    log(f"decode_volume over the lowpassed tile {tuple(lp.shape)}: median wall "
+        f"{statistics.median(walls):.4f} s of 5")
+    del lp, view
+    inter = fd.zy_lowpass_plain(tile, sigma)
+    ms = chip_smoke.cuda_ms(
+        lambda: fd.x_lowpass_decode_cuda(inter, cbt, bg, nm, sigma_x=sigma[2], **thr))
+    log(f"K2 on the K1 output {tuple(inter.shape)}: {ms:.4f} ms")
+    # the kernels' own device time (no wrapper), with all codewords and with
+    # the first alone: the second is the work outside the codebook loop
+    one = cbt[:, :1].contiguous()
+    for label, fn in (
+        ("K3 packed", lambda c: dec.decode_chunk_cuda(packed, c, bg, nm, want_scaled=False)),
+        ("K2", lambda c: fd.x_lowpass_decode_cuda(inter, c, bg, nm, sigma_x=sigma[2], **thr)),
+    ):
+        words = [device_ms(lambda: fn(c), ("decode_chunk", "x_lowpass_decode")) for c in (cbt, one)]
+        log(f"{label}: device time {words[0]:.4f} ms with {cbt.shape[1]} codewords, "
+            f"{words[1]:.4f} ms with one")
+
+
+def device_ms(fn, fragments, reps: int = 10) -> float:
+    """Mean device time in ms of the kernels whose names hold one of
+    ``fragments``, over ``reps`` calls of ``fn`` under the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows, _ = device_rows(prof.events(), [(f, "kernel") for f in fragments], "other")
+    return rows["kernel"] / reps
+
+
 def main() -> int:
     import torch
 
@@ -512,6 +603,9 @@ def main() -> int:
     if "--camera-pair" in sys.argv[1:]:
         camera_pair_times(raw)
         return 0
+    if "--decode-kernels" in sys.argv[1:]:
+        decode_kernel_times(raw)
+        return 0
     profile_registration(raw)
     profile_decon(raw)
     torch.cuda.empty_cache()
@@ -538,6 +632,11 @@ def main() -> int:
     busy = device_busy_seconds(prof.events())
     log(f"run 3, profiled: optimization {t_opt:.3f} s + final {t_final:.3f} s; wall {wall:.3f} s; "
         f"device busy {busy:.4f} s = {busy / wall:.4f} of the wall")
+    rows, calls = device_rows(prof.events(), DECODE_KERNELS, "other device ops")
+    total = sum(rows.values())
+    for _, label in (*DECODE_KERNELS, (None, "other device ops")):
+        log(f"  {label:26s} {rows[label]:10.3f} ms device, {calls[label]:5d} launches, "
+            f"{rows[label] / total:.4f} of the device time")
     log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=25))
     return 0
 

@@ -72,6 +72,123 @@ def test_k1_matches_plain(cuda, shape):
     assert (out - ref).abs().max().item() <= 1e-4 * vol.abs().max().item()
 
 
+def _assert_ids_near_ties(k_ids, p_ids, lowpassed, cbt, bg, nm, thr=None, tol=1e-4):
+    """Every decoded id that differs is a near-tie, recomputed in float64
+    from the plain version's lowpassed traces (bits, M): the top-2
+    similarity gap below ``tol``, or (with thresholds) the distance or the
+    magnitude within ``tol`` of its threshold."""
+    bad = np.flatnonzero(k_ids.cpu().numpy().ravel() != p_ids.cpu().numpy().ravel())
+    if not bad.size:
+        return
+    t = lowpassed.cpu().numpy().astype(np.float64)[:, bad]
+    s = np.clip((t - bg.cpu().numpy()[:, None]) / nm.cpu().numpy()[:, None], 0, 1)
+    mag = np.sqrt((s * s).sum(0))
+    sims = cbt.cpu().numpy().T.astype(np.float64) @ (s / np.maximum(mag, 1e-12))
+    top2 = -np.sort(-sims, axis=0)[:2] if sims.shape[0] > 1 else np.vstack([sims, sims - 1])
+    margins = [top2[0] - top2[1]]
+    if thr is not None:
+        (lo, hi), d_thr = thr["magnitude_threshold"], thr["distance_threshold"]
+        d = np.sqrt(np.maximum(2 - 2 * top2[0], 0))
+        margins += [np.abs(d - d_thr), np.abs(mag - lo), np.abs(mag - hi)]
+    assert (np.min(margins, axis=0) < tol).all(), f"{bad.size} ids differ without a near-tie"
+
+
+def _decode_operands(rng, cuda, bits, words):
+    cb = _codebook(rng, words=words, bits=bits) if bits >= 4 else np.eye(words, bits, dtype=np.float32) + 0.5
+    cbt = torch.as_tensor(dec.normalize_codebook(cb).T.copy(), device=cuda)
+    bg = torch.as_tensor((rng.random(bits) * 0.1).astype(np.float32), device=cuda)
+    nm = torch.as_tensor((rng.random(bits) + 0.5).astype(np.float32), device=cuda)
+    return cbt, bg, nm
+
+
+# (bits, words, n): both V routes, a bits_p pad (22 -> 24), one word, a
+# ragged last group of V, n below one group
+_K3_ODD = [(16, 90, 70_001), (22, 90, 4_099), (32, 90, 8_192), (16, 1, 1_003),
+           (1, 3, 3), (5, 7, 1), (17, 40, 12_345)]
+
+
+@pytest.mark.parametrize("bits,words,n", _K3_ODD)
+def test_k3_odd_shapes_match_plain(cuda, bits, words, n):
+    rng = np.random.default_rng(bits * 1000 + words)
+    cbt, bg, nm = _decode_operands(rng, cuda, bits, words)
+    traces = torch.as_tensor((rng.random((bits, n)) * 2).astype(np.float32), device=cuda)
+    k = dec.decode_chunk_cuda(traces, cbt, bg, nm)
+    p = dec.decode_chunk_plain(traces, cbt, bg, nm)
+    torch.cuda.synchronize()
+    for a, b in zip(k[1:], p[1:]):  # f32 FMA chains vs matmul order: a few ulp
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+    _assert_ids_near_ties(k[0], p[0], traces, cbt, bg, nm)
+
+
+def test_k3_scaling_is_ieee_division(cuda):
+    """K3's scaled traces are clip((t - bg) / norm) bit for bit as torch
+    divides on the card: through the kernel's branch-free division
+    (operands in [2^-40, 2^40)) and through '/' for a thread holding any
+    other operand (zeros, tiny or huge values, a norm out of range)."""
+    rng = np.random.default_rng(6)
+    bits, n = 16, 1 << 20
+    nm = (2.0 ** rng.uniform(-39, 39, bits)).astype(np.float32)
+    u = rng.random((bits, n)) * 2.0 ** -rng.integers(0, 30, (bits, n)).astype(np.float64)
+    t = (u * nm[:, None]).astype(np.float32)
+    t[:, :4096] *= np.float32(2.0**-60)  # these threads divide through '/'
+    t[:, 4096:8192:3] = 0.0
+    bg = np.zeros(bits, np.float32)
+    bg[:4] = t[:4, 9000]  # exact zeros from t - bg, and shifted quotients
+    cbt, _, _ = _decode_operands(rng, cuda, bits, 90)
+    for norms in (nm, np.concatenate([nm[:15], [np.float32(3e15)]])):
+        args = [torch.as_tensor(a, device=cuda) for a in (t, bg, norms)]
+        k = dec.decode_chunk_cuda(args[0], cbt, args[1], args[2])
+        p = dec.decode_chunk_plain(args[0], cbt, args[1], args[2])
+        assert torch.equal(k[3], p[3])
+
+
+def test_k3_strided_view_matches_packed(cuda):
+    """A z-chunk view of a (bits, Z, Y, X) volume, as decode_volume passes
+    it, and a view whose rows start off the 16-byte grid (the element-wise
+    route) give what the same data packed gives, bit for bit."""
+    rng = np.random.default_rng(5)
+    cbt, bg, nm = _decode_operands(rng, cuda, 16, 90)
+    vol = torch.as_tensor((rng.random((16, 11, 40, 72)) * 2).astype(np.float32), device=cuda)
+    flat = torch.as_tensor((rng.random((16, 5001)) * 2).astype(np.float32), device=cuda)
+    for view in (vol[:, 3:9].reshape(16, -1), vol[:, 8:].reshape(16, -1), flat[:, 1:5001]):
+        assert not view.is_contiguous() and view.stride(1) == 1
+        packed = view.contiguous()
+        for want_scaled in (True, False):
+            got = dec.decode_chunk_cuda(view, cbt, bg, nm, want_scaled=want_scaled)
+            ref = dec.decode_chunk_cuda(packed, cbt, bg, nm, want_scaled=want_scaled)
+            for a, b in zip(got, ref):
+                assert (a is None and b is None) or torch.equal(a, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        dec.decode_chunk_cuda(vol[:, 0, :, :2].reshape(16, -1)[:, ::2], cbt, bg, nm)
+
+
+# (bits, words, (nz, ny, nx), sigma_x): nx 1 and 3 with pads wider than the
+# row, 96 (the hermetic tile), 97 (a ragged segment, the element-wise
+# stores), 1024 (two V = 4 segments, four V = 2 ones); sigma_x 1 (9 taps,
+# the register window), 2.6 (21 taps, taps read from shared memory), 0
+# (1 tap)
+_K2_ODD = [
+    (16, 90, (2, 3, 1), 1.0), (16, 90, (2, 3, 3), 2.6), (16, 90, (3, 5, 96), 1.0),
+    (22, 90, (2, 7, 97), 1.0), (32, 90, (1, 4, 1024), 1.0), (16, 1, (2, 4, 1024), 1.0),
+    (5, 7, (2, 6, 97), 0.0), (16, 90, (2, 5, 130), 2.6), (32, 24, (2, 3, 3), 1.0),
+]
+
+
+@pytest.mark.parametrize("bits,words,shape,sigma_x", _K2_ODD)
+def test_k2_odd_shapes_match_plain(cuda, bits, words, shape, sigma_x):
+    rng = np.random.default_rng(bits * 100 + shape[-1])
+    cbt, bg, nm = _decode_operands(rng, cuda, bits, words)
+    inter = torch.as_tensor((rng.random((bits, *shape)) * 2).astype(np.float32), device=cuda)
+    thr = dict(magnitude_threshold=(0.9, 10.0), distance_threshold=0.5176)
+    k = fd.x_lowpass_decode_cuda(inter, cbt, bg, nm, sigma_x=sigma_x, **thr)
+    p = fd.x_lowpass_decode_plain(inter, cbt, bg, nm, sigma_x=sigma_x, **thr)
+    torch.cuda.synchronize()
+    for a, b in zip(k[1:], p[1:]):  # one f16 rounding step at most
+        torch.testing.assert_close(a.float(), b.float(), rtol=2**-10, atol=2**-14)
+    lp = fd.gaussian_lowpass(inter, sigma=(0.0, 0.0, sigma_x)).reshape(bits, -1)
+    _assert_ids_near_ties(k[0], p[0], lp, cbt, bg, nm, thr)
+
+
 def test_k1_k2_match_plain(cuda):
     rng = np.random.default_rng(2)
     cb = _codebook(rng)
@@ -141,6 +258,32 @@ def test_decode_volume_on_card_matches_cpu(cuda):
     for a, b in zip(gpu[1:], cpu[1:]):
         np.testing.assert_allclose(a.astype(np.float32), b.astype(np.float32),
                                    rtol=2**-10, atol=2**-14)
+    # each z-chunk reaches K3 as a view of the volume, one launch a chunk,
+    # also where a plane is not a multiple of V (the element-wise route)
+    seen = []
+    real = dec.decode_chunk_cuda
+
+    def spy(traces, *args, **kw2):
+        seen.append(traces.data_ptr())
+        return real(traces, *args, **kw2)
+
+    for v, z_chunk in ((torch.as_tensor(vol, device=cuda), 8),
+                       (torch.as_tensor(vol[:, :, :9, :71].copy(), device=cuda), 3)):
+        seen.clear()
+        dec.decode_chunk_cuda = spy
+        try:
+            before = dec.launch_count
+            got = dec.decode_volume(v, cb, bg, nm, z_chunk=z_chunk, return_scaled=False, **kw)
+        finally:
+            dec.decode_chunk_cuda = real
+        chunks = range(0, 11, z_chunk)
+        assert dec.launch_count - before == len(chunks)
+        assert seen == [v[:, z0].data_ptr() for z0 in chunks]
+        ref = dec.decode_volume(v.cpu().numpy(), cb, bg, nm, device="cpu", return_scaled=False, **kw)
+        assert got[3] is None and (got[0] != ref[0]).mean() <= 1e-3
+        for a, b in zip(got[1:3], ref[1:3]):
+            np.testing.assert_allclose(a.astype(np.float32), b.astype(np.float32),
+                                       rtol=2**-10, atol=2**-14)
 
 
 # ------------------------------------------------------------ DFT kernels
