@@ -12,11 +12,11 @@ Run from the root of a checkout. Phases, each raising on failure:
 3. each kernel against its plain torch version on the card, at the
    shapes the main path gives it (K3 on one 8-plane chunk, packed and as
    the view ``decode_volume`` passes, with the V route and the codebook's
-   padding logged; K1 and K2 on
-   the whole production tile; K10 and K7 on the (16, 896, 896) stage-2
-   crop of a production fiducial round; K6, K7 and K8 on a (32, 1920,
-   1920) crop of the camera pair; K10 at the largest plane its gate
-   admits; K10, K9, K4 and K5 on the first RLGC iteration of a production
+   padding logged; K1 (its route logged: segment rows, columns, shared
+   bytes, blocks an SM) and K2 on the whole production tile; K10 and K7
+   on the (16, 896, 896) stage-2 crop of a production fiducial round; K6,
+   K7 and K8 on a (32, 1920, 1920) crop of the camera pair; K10 at the
+   largest plane its gate admits; K10, K9, K4 and K5 on the first RLGC iteration of a production
    readout bit padded to (32, 1152, 1152)), with timings (CUDA events), the
    bound of each and the time of one ``torch`` call or composition
    computing the same function (K7's and K10's two passes, K9's three
@@ -325,6 +325,10 @@ def check_decode_kernels(raw) -> list[dict]:
     # kernels the whole (bits, 16, 1024, 1024) tile, since its working set
     # (3 x 1.07 GB) fits the memory budget at production geometry
     log(f"K1 zy_lowpass_f32 on the tile {tuple(tile.shape)}")
+    r = fd.zy_route(tuple(tile.shape), sigma)
+    log(f"  route: {r['kernel']} kernel, segments of {r['seg_rows']} rows x {r['tile_x']} columns, "
+        f"{r['smem_bytes']} shared bytes and {r['threads']} threads a block, "
+        f"{r['blocks_per_sm']} blocks an SM, grid {r['grid']}")
     k_inter = fd.zy_lowpass_cuda(tile, sigma)
     inter = fd.zy_lowpass_plain(tile, sigma)
     torch.cuda.synchronize()
@@ -336,7 +340,8 @@ def check_decode_kernels(raw) -> list[dict]:
     rows.append(row(
         "zy_lowpass_f32 (K1)", "fused_decode.cu", "merfish3d_tpu/ops/fused_decode.py:104", e1,
         lambda: fd.zy_lowpass_cuda(tile, sigma), lambda: fd.zy_lowpass_plain(tile, sigma),
-        tile.numel() * 8, tile.numel() * 2 * (taps[sigma[0]] + taps[sigma[1]]),
+        # reads and writes 4 B a voxel; the z fold's min(taps_z, Z) taps and the y taps a voxel
+        tile.numel() * 8, tile.numel() * 2 * (min(taps[sigma[0]], tile.shape[1]) + taps[sigma[1]]),
     ))
 
     log(f"K2 x_lowpass_decode_f32 on the plain K1 output {tuple(inter.shape)}")

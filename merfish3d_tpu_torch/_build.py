@@ -112,6 +112,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.decode_chunk_f32.restype = i
     lib.zy_lowpass_f32.argtypes = [p, p, p, p, i, p, p, i, i, i, i, i, p, p]
     lib.zy_lowpass_f32.restype = i
+    lib.zy_lowpass_route.argtypes = [i, i, i, i, i, p]
+    lib.zy_lowpass_route.restype = i
     lib.x_lowpass_decode_f32.argtypes = [
         p, p, p, i, p, p, p, i, i, i, i, i, f, f, f, p, p, p, p, p,
     ]

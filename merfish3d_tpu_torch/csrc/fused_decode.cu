@@ -5,16 +5,35 @@
 //   merfish3d_tpu/ops/fused_decode.py:_zyconv_scan_kernel
 // — the y and z passes of the lowpass. The TPU kernel scans y blocks in
 // order and carries the halo in VMEM from one grid step to the next; on
-// Hopper blocks run in no order, so each thread reads its own y halo
-// straight from device memory (neighbouring rows are L1/L2 hits) through
-// a host-built symmetric index map (np.pad "symmetric", reflection at the
-// true edges). Up to 64 planes, a thread keeps its whole z column of
-// y-filtered values in registers (unrolled) and applies the z pass as a
-// dense (nz, nz) matrix with the symmetric z pad folded in — the same
-// fold the TPU kernel uses, exact for any pad width. A deeper column does
-// not fit in registers: zy_lowpass_direct_kernel then sums, for each
-// output plane, the y pass of its taps_z input planes through the z index
-// map (the y pass is recomputed per z tap; any Z, any pad width).
+// Hopper blocks run in no order, so a block stages its own halo. Up to 64
+// planes, a tile is a bit, kZyTileX = 32 columns and a segment of
+// SEG = kZyWarps * R output rows (R = kZyAcc / MAXZ rows a thread: 4 at
+// MAXZ = 16, the main path's depths), and a block walks a tile's z planes
+// itself. The grid is one wave of blocks, each walking every gridDim-th
+// tile. For each plane a block copies the segment's SEG + taps_y - 1 input
+// rows of its columns into shared memory once by cp.async (16 bytes a copy
+// where nx % 4 == 0), through a ring of kZyStages planes that runs on from
+// one tile to the next, so the next planes are in flight while one is
+// summed and while a finished tile is stored. The symmetric pad (np.pad
+// "symmetric", any width) is resolved when a row is staged: its source is
+// the row itself inside the volume, else the host-built ymap's reflection;
+// no tap reads an index or device memory. Lane l of warp w then sums the y
+// taps of its R rows (rows w * R .. w * R + R - 1, column x0 + l) from a
+// register window of R + taps_y - 1 staged values (taps_y <= kWindowTaps;
+// more taps read shared memory tap by tap), in ascending tap order from
+// +0, and folds each into R * MAXZ accumulators:
+// acc[zo] = fmaf(wz[zo][zi], t, acc[zo]) for plane zi, with wz's column
+// read from shared memory as float4 broadcasts. wz is the dense (nz, nz) z
+// pass with the symmetric z pad folded in, exact for any pad width, and the
+// planes come in ascending order, so every output is the same fmaf chain
+// as the one-row-a-block kernel this replaced: the outputs are bit for bit
+// that kernel's. Tiles are numbered column tile fastest, so the blocks
+// running together cover whole rows of tiles, and neighbouring segments,
+// which share taps_y - 1 halo rows, are staged close in time: the halo
+// comes from L2. A deeper volume does not fit the accumulators:
+// zy_lowpass_direct_kernel then sums, for each output plane, the y pass of
+// its taps_z input planes through the z index map (the y pass is
+// recomputed per z tap; any Z, any pad width).
 //
 // K2 (x_lowpass_decode_kernel) replaces
 //   merfish3d_tpu/ops/fused_decode.py:_xconv_decode_kernel
@@ -25,14 +44,17 @@
 // lo <= mag <= hi. Outputs are stored as int16 labels and float16 floats
 // (the TPU stored bfloat16 only because Mosaic crashes on f16 stores).
 //
-// Bound on the H100. K1 moves its bytes at ~18 % of the 3.35 TB/s DRAM
-// roofline on the production tile (NVIDIA H100 80GB HBM3, 700 W), so
-// memory does not bound it; it does (taps_y + nz) FMAs per voxel with a
-// shared-memory read each, and the likely bound is instruction issue (an
-// inference: no instruction counter could be read there). Threads map to
-// x, so every load and store of a warp touches 32 consecutive addresses;
-// each input voxel is read from DRAM once and the halo taps come from
-// cache.
+// Bound on the H100. K1 reads and writes each voxel once (8 bytes a
+// voxel) against min(taps_z, nz) + taps_y FMAs (16 + 9 at production),
+// under the card's FP32 balance: the 3.35 TB/s DRAM rate bounds it
+// (0.641 ms for the (16, 16, 1024, 1024) production tile). Every input
+// voxel crosses from device memory once, as 16-byte copies with up to
+// kZyStages - 1 planes in flight a block, and a warp stores 128 contiguous
+// bytes an instruction. It does not reach the bound: at 128 registers a
+// thread (the R * MAXZ accumulators) an SM holds two blocks of 8 warps,
+// and the FMAs, 100 a thread and plane, are what the SM waits on
+// (profile_decode.py --k1-tiling times the kernel with a quarter of the
+// fold's FMAs, and with rings of other depths).
 //
 // K2 is bound by its FP32 operations: (taps_x + words) FMAs a voxel and bit
 // (9 + 90 at production) against 4 bytes read. Its decode is the shared
@@ -64,48 +86,232 @@
 namespace {
 
 constexpr int kThreadsX = 128;
+// the largest dynamic shared memory a block may have on the H100
+constexpr size_t kMaxSmem = 232448;
+
+// the register window's tap count: the main path's sigma = 1 gives 9 taps
+// (K1's y pass, K2's x pass)
+constexpr int kWindowTaps = 9;
+
+// K1's tiling (see the note above)
+constexpr int kZyWarps = 8;
+constexpr int kZyThreads = 32 * kZyWarps;
+constexpr int kZyTileX = 32;   // columns a tile: a lane each
+constexpr int kZyAcc = 64;     // accumulators a thread: R = kZyAcc / MAXZ rows
+constexpr int kZyStages = 6;   // staged planes in the ring
 
 template <int MAXZ>
-__global__ void zy_lowpass_kernel(const float* __restrict__ vol,
-                                  const float* __restrict__ wz,
-                                  const float* __restrict__ ky,
-                                  const int* __restrict__ ymap, int nz, int ny,
-                                  int nx, int taps_y, float* __restrict__ out) {
-  extern __shared__ float smem[];
-  float* s_wz = smem;                // (nz, nz): out_z = wz @ in_z
-  float* s_ky = s_wz + nz * nz;      // (taps_y,)
-  int* s_rows = reinterpret_cast<int*>(s_ky + taps_y);  // (taps_y,) input rows
-  const int y = blockIdx.y;
-  for (int i = threadIdx.x; i < nz * nz; i += blockDim.x) s_wz[i] = wz[i];
-  for (int i = threadIdx.x; i < taps_y; i += blockDim.x) {
-    s_ky[i] = ky[i];
-    s_rows[i] = ymap[y + i];
-  }
-  __syncthreads();
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  if (x >= nx) return;
+__host__ __device__ constexpr int zy_rows() {
+  static_assert(MAXZ == 16 || MAXZ == 32 || MAXZ == 64, "MAXZ is 16, 32 or 64");
+  return kZyAcc / MAXZ;
+}
 
-  const long long plane = (long long)ny * nx;
-  const float* vb = vol + (long long)blockIdx.z * nz * plane + x;
-  float t[MAXZ];
+// rows of a staged plane: the segment, its taps - 1 halo rows and room for
+// the register window's reads past the last tap
+__host__ __device__ constexpr int zy_stage_rows(int seg, int taps) {
+  return seg + (taps > kWindowTaps ? taps : kWindowTaps) - 1;
+}
+
+// shared memory of K1's block: the ring of staged planes, wz transposed
+// (nz, MAXZ) and the y taps
+template <int MAXZ>
+size_t zy_smem_bytes(int nz, int taps_y) {
+  const int srows = zy_stage_rows(kZyWarps * zy_rows<MAXZ>(), taps_y);
+  return ((size_t)kZyStages * srows * kZyTileX + (size_t)nz * MAXZ + taps_y) * sizeof(float);
+}
+
+// The y pass of R consecutive rows from the staged plane at ``st`` (this
+// thread's first row, its column; rows kZyTileX floats apart):
+// t[r] = sum over k ascending of ky[k] * st[(r + k) row], each an fmaf
+// from +0. TW > 0: the R + TW - 1 values sit in registers and taps <= TW;
+// TW == 0: any taps, read from shared memory.
+template <int R, int TW>
+__device__ __forceinline__ void y_pass(const float* st, const float (&kr)[TW > 0 ? TW : 1],
+                                       const float* s_ky, int taps, float (&t)[R]) {
 #pragma unroll
-  for (int z = 0; z < MAXZ; ++z) {
-    float acc = 0.f;
-    if (z < nz) {
-      const float* col = vb + (long long)z * plane;
-      for (int k = 0; k < taps_y; ++k)
-        acc = fmaf(s_ky[k], __ldg(col + (long long)s_rows[k] * nx), acc);
+  for (int r = 0; r < R; ++r) t[r] = 0.f;
+  if constexpr (TW > 0) {
+    float win[R + TW - 1];
+#pragma unroll
+    for (int j = 0; j < R + TW - 1; ++j) win[j] = st[j * kZyTileX];
+#pragma unroll
+    for (int k = 0; k < TW; ++k)
+      if (k < taps) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) t[r] = fmaf(kr[k], win[r + k], t[r]);
+      }
+  } else {
+    for (int k = 0; k < taps; ++k) {
+      const float w = s_ky[k];
+#pragma unroll
+      for (int r = 0; r < R; ++r) t[r] = fmaf(w, st[(r + k) * kZyTileX], t[r]);
     }
-    t[z] = acc;
   }
-  float* ob = out + (long long)blockIdx.z * nz * plane + (long long)y * nx + x;
-  for (int zo = 0; zo < nz; ++zo) {
-    const float* wrow = s_wz + zo * nz;
-    float acc = 0.f;
+}
+
+// A tile of K1 and a plane of it, with the tile's place: its first output
+// row, first column and bit. Tiles are numbered column tile fastest, then y
+// segment, then bit.
+struct ZyCursor {
+  long long t;
+  int z, y0, x0, b;
+  __device__ void locate(int nseg, int ntx, int seg_rows) {
+    x0 = (int)(t % ntx) * kZyTileX;
+    y0 = (int)(t / ntx % nseg) * seg_rows;
+    b = (int)(t / ntx / nseg);
+  }
+  __device__ void next(int nz, long long stride, int nseg, int ntx, int seg_rows) {
+    if (++z < nz) return;
+    z = 0;
+    t += stride;
+    locate(nseg, ntx, seg_rows);
+  }
+};
+
+// The grid is one wave of the card's blocks; block i walks tiles i, i + grid,
+// i + 2 grid, ..., so the blocks running together cover whole rows of tiles
+// and a segment's halo rows, read by the segment above it in the same round,
+// come from L2. The ring of staged planes runs on across a block's tiles:
+// the next tile's first planes are in flight while a tile finishes and
+// stores. ``vec``: nx % 4 == 0 and ``vol`` 16-byte aligned, so a staged row
+// can be copied as 16-byte groups, each wholly inside or outside the row.
+template <int MAXZ, int TW>
+__global__ void __launch_bounds__(kZyThreads, 2) zy_lowpass_kernel(
+    const float* __restrict__ vol, const float* __restrict__ wz,
+    const float* __restrict__ ky, const int* __restrict__ ymap, int bits, int nz,
+    int ny, int nx, int taps_y, int vec, float* __restrict__ out) {
+  constexpr int R = zy_rows<MAXZ>();
+  constexpr int SEG = kZyWarps * R;
+  constexpr int G = kZyTileX / 4;  // 16-byte groups a staged row
+  const int srows = zy_stage_rows(SEG, taps_y);
+  const int plane_floats = srows * kZyTileX;
+  extern __shared__ float4 smem4[];
+  float* s_stage = reinterpret_cast<float*>(smem4);      // kZyStages x (srows, kZyTileX)
+  float* s_wzt = s_stage + kZyStages * plane_floats;      // (nz, MAXZ): wz[zo][zi] at [zi][zo], 0 past nz
+  float* s_ky = s_wzt + nz * MAXZ;                        // (taps_y,)
+  for (int i = threadIdx.x; i < nz * MAXZ; i += kZyThreads) {
+    const int zi = i / MAXZ, zo = i % MAXZ;
+    s_wzt[i] = zo < nz ? __ldg(wz + zo * nz + zi) : 0.f;
+  }
+  for (int i = threadIdx.x; i < taps_y; i += kZyThreads) s_ky[i] = __ldg(ky + i);
+
+  const int r_y = (taps_y - 1) / 2;
+  const int nseg = (ny + SEG - 1) / SEG, ntx = (nx + kZyTileX - 1) / kZyTileX;
+  const long long ntiles = (long long)nseg * ntx * bits;
+  // (tile, plane) steps of this block: tiles blockIdx.x + k * gridDim.x
+  const long long steps = (ntiles - blockIdx.x + gridDim.x - 1) / gridDim.x * nz;
+  const long long plane = (long long)ny * nx;
+  // the source of padded row y0 + row of a segment: row y0 + row - r_y
+  // inside the volume, else the symmetric pad's ymap[y0 + row]
+  auto source_row = [&](int y0, int row) {
+    const int src = y0 + row - r_y;
+    return (src >= 0 && src < ny) ? src : __ldg(ymap + y0 + row);
+  };
+  // plane c.z of tile c into ring slot ``slot``. Where nx % 4 == 0 and
+  // taps_y <= kWindowTaps (``fixed``) a plane is at most two 16-byte groups a
+  // thread, threadIdx.x + j * kZyThreads (j < 2), the same in every plane of
+  // a tile, so their offsets are found once a tile
+  constexpr bool kTwoCopies = TW > 0 && (SEG + kWindowTaps - 1) * G <= 2 * kZyThreads;
+  static_assert(TW == 0 || kTwoCopies, "a plane's 16-byte groups exceed two a thread");
+  const bool fixed = kTwoCopies && vec;
+  long long off[2] = {0, 0};
+  bool ok[2] = {false, false};
+  auto stage = [&](const ZyCursor& c, int slot) {
+    const int y0 = c.y0, x0 = c.x0;
+    const int nrows = min(SEG, ny - y0) + taps_y - 1;
+    const int ncols = min(kZyTileX, nx - x0);
+    float* buf = s_stage + slot * plane_floats;
+    const float* pz = vol + ((long long)c.b * nz + c.z) * plane + x0;
+    if (fixed) {
+      if (c.z == 0) {  // a new tile: its copies' offsets
 #pragma unroll
-    for (int zi = 0; zi < MAXZ; ++zi)
-      if (zi < nz) acc = fmaf(wrow[zi], t[zi], acc);
-    ob[(long long)zo * plane] = acc;
+        for (int j = 0; j < 2; ++j) {
+          const int i = threadIdx.x + j * kZyThreads, row = i / G, g = i % G;
+          ok[j] = row < nrows && 4 * g < ncols;
+          off[j] = ok[j] ? (long long)source_row(y0, row) * nx + 4 * g : 0;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int i = threadIdx.x + j * kZyThreads;
+        if (ok[j]) decode_core::cp_async16(buf + (i / G) * kZyTileX + 4 * (i % G), pz + off[j]);
+      }
+    } else {  // any row length or tap count: 4-byte copies
+      for (int i = threadIdx.x; i < nrows * kZyTileX; i += kZyThreads) {
+        const int row = i / kZyTileX, col = i % kZyTileX;
+        if (col < ncols)
+          decode_core::cp_async4(buf + row * kZyTileX + col, pz + (long long)source_row(y0, row) * nx + col);
+      }
+    }
+  };
+
+  ZyCursor in;  // the next plane to stage
+  in.t = blockIdx.x;
+  in.z = 0;
+  in.locate(nseg, ntx, SEG);
+  ZyCursor cur = in;  // the plane to sum
+#pragma unroll
+  for (int s = 0; s < kZyStages - 1; ++s) {
+    if (s < steps) {
+      stage(in, s);
+      in.next(nz, gridDim.x, nseg, ntx, SEG);
+    }
+    decode_core::cp_async_commit();
+  }
+  __syncthreads();  // s_wzt, s_ky
+  float kr[TW > 0 ? TW : 1];
+#pragma unroll
+  for (int k = 0; k < (TW > 0 ? TW : 1); ++k) kr[k] = k < taps_y ? s_ky[k] : 0.f;
+  float acc[MAXZ][R];
+#pragma unroll
+  for (int zo = 0; zo < MAXZ; ++zo) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[zo][r] = 0.f;
+  }
+  const int col = threadIdx.x & 31;  // this thread's column, in the tile
+  const int rb = (threadIdx.x >> 5) * R;  // this thread's first row, in the segment
+
+  int slot = 0, next_slot = kZyStages - 1;
+  for (long long q = 0; q < steps; ++q) {
+    decode_core::cp_async_wait_group<kZyStages - 2>();  // plane q has landed (own copies)
+    __syncthreads();  // everyone's copies of q; everyone is done with plane q - 1's slot
+    if (q + kZyStages - 1 < steps) {
+      stage(in, next_slot);
+      in.next(nz, gridDim.x, nseg, ntx, SEG);
+    }
+    decode_core::cp_async_commit();
+    next_slot = next_slot + 1 == kZyStages ? 0 : next_slot + 1;
+    float t[R];
+    y_pass<R, TW>(s_stage + slot * plane_floats + rb * kZyTileX + col, kr, s_ky, taps_y, t);
+    slot = slot + 1 == kZyStages ? 0 : slot + 1;
+    const float4* w4 = reinterpret_cast<const float4*>(s_wzt + cur.z * MAXZ);
+#pragma unroll
+    for (int g = 0; g < MAXZ / 4; ++g) {
+      if (4 * g < nz) {
+        const float4 w = w4[g];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          acc[4 * g][r] = fmaf(w.x, t[r], acc[4 * g][r]);
+          acc[4 * g + 1][r] = fmaf(w.y, t[r], acc[4 * g + 1][r]);
+          acc[4 * g + 2][r] = fmaf(w.z, t[r], acc[4 * g + 2][r]);
+          acc[4 * g + 3][r] = fmaf(w.w, t[r], acc[4 * g + 3][r]);
+        }
+      }
+    }
+    if (cur.z == nz - 1) {  // the tile's last plane: store it, start the next
+      const int y0 = cur.y0, x = cur.x0 + col;
+      const int nout = min(SEG, ny - y0);
+      float* ob = out + (long long)cur.b * nz * plane + (long long)(y0 + rb) * nx + x;
+#pragma unroll
+      for (int zo = 0; zo < MAXZ; ++zo) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          if (zo < nz && rb + r < nout && x < nx) ob[zo * plane + (long long)r * nx] = acc[zo][r];
+          acc[zo][r] = 0.f;
+        }
+      }
+    }
+    cur.next(nz, gridDim.x, nseg, ntx, SEG);
   }
 }
 
@@ -348,9 +554,6 @@ __global__ void __launch_bounds__(kThreadsX) x_lowpass_decode_kernel(
   store_halves<V>(dist_out + at + x, dist, vec, nv);
 }
 
-// the largest dynamic shared memory a block may have on the H100
-constexpr size_t kMaxSmem = 232448;
-
 template <int MAXB, int TW>
 int launch_x_decode(const float* inter, const float* kx, const int* xmap,
                     int taps_x, const float* cb, const float* bg,
@@ -384,9 +587,6 @@ int launch_x_decode(const float* inter, const float* kx, const int* xmap,
   return (int)cudaGetLastError();
 }
 
-// the register window's tap count: the main path's sigma_x = 1 gives 9 taps
-constexpr int kWindowTaps = 9;
-
 template <int MAXB>
 int dispatch_x_decode(const float* inter, const float* kx, const int* xmap,
                       int taps_x, const float* cb, const float* bg,
@@ -400,8 +600,92 @@ int dispatch_x_decode(const float* inter, const float* kx, const int* xmap,
                                   ny, nx, lo, hi, dthr, d, m, di, sc, st);
 }
 
+// K1's launch shape: its shared bytes (allowed above the default 48 KB
+// limit once), the blocks an SM holds, and the grid: the blocks one wave of
+// the card holds, or a block a tile where there are fewer tiles.
+template <int MAXZ, int TW>
+cudaError_t zy_shape(int bits, int ny, int nx, size_t smem, int* per_sm, int* grid) {
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  static size_t smem_allowed = 48 * 1024;
+  if (smem > smem_allowed) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        zy_lowpass_kernel<MAXZ, TW>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    smem_allowed = smem;
+  }
+  constexpr int SEG = kZyWarps * zy_rows<MAXZ>();
+  const long long ntiles =
+      (long long)((ny + SEG - 1) / SEG) * ((nx + kZyTileX - 1) / kZyTileX) * bits;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, zy_lowpass_kernel<MAXZ, TW>,
+                                                      kZyThreads, smem);
+  if (e != cudaSuccess) return e;
+  const long long wave = (long long)*per_sm * sms;
+  if (wave < 1) return cudaErrorInvalidConfiguration;
+  *grid = (int)std::min(ntiles, wave);
+  return cudaSuccess;
+}
+
+template <int MAXZ, int TW>
+int launch_zy(const float* vol, const float* wz, const float* ky, const int* ymap, int bits,
+              int nz, int ny, int nx, int taps_y, float* out, cudaStream_t st) {
+  int per_sm = 0, grid = 0;
+  const cudaError_t e =
+      zy_shape<MAXZ, TW>(bits, ny, nx, zy_smem_bytes<MAXZ>(nz, taps_y), &per_sm, &grid);
+  if (e != cudaSuccess) return (int)e;
+  const int vec = nx % 4 == 0 && reinterpret_cast<uintptr_t>(vol) % 16 == 0;
+  zy_lowpass_kernel<MAXZ, TW><<<grid, kZyThreads, zy_smem_bytes<MAXZ>(nz, taps_y), st>>>(
+      vol, wz, ky, ymap, bits, nz, ny, nx, taps_y, vec, out);
+  return (int)cudaGetLastError();
+}
+
+template <int MAXZ>
+int dispatch_zy(const float* vol, const float* wz, const float* ky, const int* ymap, int bits,
+                int nz, int ny, int nx, int taps_y, float* out, cudaStream_t st) {
+  if (taps_y <= kWindowTaps)
+    return launch_zy<MAXZ, kWindowTaps>(vol, wz, ky, ymap, bits, nz, ny, nx, taps_y, out, st);
+  return launch_zy<MAXZ, 0>(vol, wz, ky, ymap, bits, nz, ny, nx, taps_y, out, st);
+}
+
+// K1's route for a shape, for the logs: info = {1 for the staged kernel or 0
+// for the direct one, output rows a segment, columns a tile, shared bytes a
+// block, resident blocks an SM, threads a block, blocks in the grid}.
+template <int MAXZ, int TW>
+int zy_route(int bits, int nz, int ny, int nx, int taps_y, int* info) {
+  const size_t smem = zy_smem_bytes<MAXZ>(nz, taps_y);
+  info[0] = 1;
+  info[1] = kZyWarps * zy_rows<MAXZ>();
+  info[2] = kZyTileX;
+  info[3] = (int)smem;
+  info[5] = kZyThreads;
+  return (int)zy_shape<MAXZ, TW>(bits, ny, nx, smem, &info[4], &info[6]);
+}
+
+template <int MAXZ>
+int zy_route_taps(int bits, int nz, int ny, int nx, int taps_y, int* info) {
+  if (taps_y <= kWindowTaps) return zy_route<MAXZ, kWindowTaps>(bits, nz, ny, nx, taps_y, info);
+  return zy_route<MAXZ, 0>(bits, nz, ny, nx, taps_y, info);
+}
+
 }  // namespace
 
+extern "C" int zy_lowpass_route(int bits, int nz, int ny, int nx, int taps_y, int* info) {
+  if (bits < 1 || nz < 1 || ny < 1 || nx < 1 || taps_y < 1) return (int)cudaErrorInvalidValue;
+  if (nz <= 16) return zy_route_taps<16>(bits, nz, ny, nx, taps_y, info);
+  if (nz <= 32) return zy_route_taps<32>(bits, nz, ny, nx, taps_y, info);
+  if (nz <= 64) return zy_route_taps<64>(bits, nz, ny, nx, taps_y, info);
+  const int direct[7] = {0, 1, kThreadsX, 0, 0, kThreadsX, (nx + kThreadsX - 1) / kThreadsX * ny * bits};
+  std::copy(direct, direct + 7, info);
+  return 0;
+}
+
+// vol: (bits, nz, ny, nx) float32; wz: the (nz, nz) z fold (nz <= 64, else
+// unused); kz, zmap: the z taps and the z pad's index map (nz > 64, else
+// unused); ymap: the y pad's source row of each of ny + taps_y - 1 padded
+// rows.
 extern "C" int zy_lowpass_f32(const float* vol, const float* wz,
                               const float* kz, const int* zmap, int taps_z,
                               const float* ky, const int* ymap, int bits,
@@ -410,27 +694,18 @@ extern "C" int zy_lowpass_f32(const float* vol, const float* wz,
   if (bits < 1 || bits > 65535 || nz < 1 || ny < 1 || ny > 65535 || nx < 1 ||
       taps_y < 1 || taps_z < 1 || (nz <= 64 && wz == nullptr))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((nx + kThreadsX - 1) / kThreadsX, ny, bits);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (nz > 64) {
+    const dim3 grid((nx + kThreadsX - 1) / kThreadsX, ny, bits);
     const size_t smem = (size_t)(taps_z + taps_y) * sizeof(float) +
                         (size_t)taps_y * sizeof(int);
     zy_lowpass_direct_kernel<<<grid, kThreadsX, smem, st>>>(
         vol, kz, zmap, ky, ymap, nz, ny, nx, taps_z, taps_y, out);
     return (int)cudaGetLastError();
   }
-  const size_t smem = (size_t)(nz * nz + taps_y) * sizeof(float) +
-                      (size_t)taps_y * sizeof(int);
-  if (nz <= 16)
-    zy_lowpass_kernel<16><<<grid, kThreadsX, smem, st>>>(vol, wz, ky, ymap, nz,
-                                                         ny, nx, taps_y, out);
-  else if (nz <= 32)
-    zy_lowpass_kernel<32><<<grid, kThreadsX, smem, st>>>(vol, wz, ky, ymap, nz,
-                                                         ny, nx, taps_y, out);
-  else
-    zy_lowpass_kernel<64><<<grid, kThreadsX, smem, st>>>(vol, wz, ky, ymap, nz,
-                                                         ny, nx, taps_y, out);
-  return (int)cudaGetLastError();
+  if (nz <= 16) return dispatch_zy<16>(vol, wz, ky, ymap, bits, nz, ny, nx, taps_y, out, st);
+  if (nz <= 32) return dispatch_zy<32>(vol, wz, ky, ymap, bits, nz, ny, nx, taps_y, out, st);
+  return dispatch_zy<64>(vol, wz, ky, ymap, bits, nz, ny, nx, taps_y, out, st);
 }
 
 // inter: (bits, nz, ny, nx) float32, the K1 output; xmap: the symmetric

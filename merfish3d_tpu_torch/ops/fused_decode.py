@@ -16,7 +16,9 @@ Outputs: decoded int16 (Z, Y, X), magnitude and distance float16
 
 from __future__ import annotations
 
+import ctypes
 import functools
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -96,24 +98,69 @@ def _require_cuda(t: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name} needs a CUDA tensor, got one on {t.device}")
 
 
+class ZyTables(NamedTuple):
+    """K1's tables on one device. Up to 64 planes the kernel folds z through
+    ``wz`` and takes neither ``kz`` nor ``zmap``; deeper, its direct path
+    takes those and not ``wz``."""
+
+    wz: Optional[torch.Tensor]  # (nz, nz) z fold
+    kz: Optional[torch.Tensor]  # (taps_z,) z taps
+    zmap: Optional[torch.Tensor]  # (nz + taps_z - 1,) z pad's source plane
+    ky: torch.Tensor  # (taps_y,) y taps
+    ymap: torch.Tensor  # (ny + taps_y - 1,) y pad's source row
+    taps_z: int
+
+
+@functools.lru_cache(maxsize=64)
+def _zy_tables(nz: int, ny: int, sigma_z: float, sigma_y: float, device: torch.device) -> ZyTables:
+    """K1's tables on ``device``, built and uploaded once a depth, row count
+    and sigma pair (each upload from host memory costs a copy)."""
+    kz, ky = _kernel_or_identity(sigma_z), _kernel_or_identity(sigma_y)
+    fold = nz <= 64
+    return ZyTables(
+        wz=torch.as_tensor(z_fold_matrix(kz, nz), device=device) if fold else None,
+        kz=None if fold else torch.as_tensor(kz, device=device),
+        zmap=None if fold else _index_map(nz, kz, device),
+        ky=torch.as_tensor(ky, device=device),
+        ymap=_index_map(ny, ky, device),
+        taps_z=len(kz),
+    )
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def zy_route(shape, sigma) -> dict:
+    """K1's launch shape for a (bits, Z, Y, X) volume and sigma, as the kernel
+    library reports it: the kernel (``staged`` up to 64 planes, else
+    ``direct``), output rows a segment, columns a tile, shared bytes a block,
+    resident blocks an SM, threads a block and blocks in the grid. Needs the
+    card."""
+    bits, nz, ny, nx = shape
+    info = (ctypes.c_int * 7)()
+    taps_y = len(_kernel_or_identity(sigma[1]))
+    _build.check(_build.kernels().zy_lowpass_route(bits, nz, ny, nx, taps_y, info),
+                 "zy_lowpass_route")
+    keys = ("seg_rows", "tile_x", "smem_bytes", "blocks_per_sm", "threads", "grid")
+    return {"kernel": "staged" if info[0] else "direct", **dict(zip(keys, info[1:]))}
+
+
 def zy_lowpass_cuda(volume: torch.Tensor, sigma) -> torch.Tensor:
     """Kernel K1 on a CUDA tensor; same result as :func:`zy_lowpass_plain`.
     Up to 64 planes the z pass is the folded (Z, Z) matrix; deeper volumes
-    take the kernel's direct z-tap path."""
+    take the kernel's direct z-tap path. The tables come from
+    :func:`_zy_tables`, so a repeated shape uploads nothing."""
     global launch_count_zy
     _require_cuda(volume, "zy_lowpass_cuda")
     _check_volume(volume, kernel=True)
     bits, nz, ny, nx = volume.shape
-    dev = volume.device
-    kz, ky = _kernel_or_identity(sigma[0]), _kernel_or_identity(sigma[1])
-    wz = torch.as_tensor(z_fold_matrix(kz, nz), device=dev) if nz <= 64 else None
-    kz_t, ky_t = torch.as_tensor(kz, device=dev), torch.as_tensor(ky, device=dev)
-    zmap, ymap = _index_map(nz, kz, dev), _index_map(ny, ky, dev)
+    tab = _zy_tables(nz, ny, float(sigma[0]), float(sigma[1]), volume.device)
     out = torch.empty_like(volume)
     status = _build.kernels().zy_lowpass_f32(
-        volume.data_ptr(), None if wz is None else wz.data_ptr(), kz_t.data_ptr(),
-        zmap.data_ptr(), len(kz), ky_t.data_ptr(), ymap.data_ptr(),
-        bits, nz, ny, nx, len(ky), out.data_ptr(), _build.stream_handle(dev),
+        volume.data_ptr(), _ptr(tab.wz), _ptr(tab.kz), _ptr(tab.zmap), tab.taps_z,
+        tab.ky.data_ptr(), tab.ymap.data_ptr(), bits, nz, ny, nx, tab.ky.numel(),
+        out.data_ptr(), _build.stream_handle(volume.device),
     )
     _build.check(status, "zy_lowpass_f32")
     launch_count_zy += 1

@@ -76,16 +76,28 @@ length takes, with the byte bound: the measurement behind the route map.
 
     python3 profile_decode.py --decode-kernels
 
-instead times K2 and K3 on the production tile with the settings of
+instead times K1, K2 and K3 on the production tile with the settings of
 ``chip_smoke.py``'s decode checks: K3 on the first 8-plane chunk of the
 tile's lowpass, packed and as the view ``decode_volume`` passes (an
-older checkout that refuses the view says so), K2 on the plain K1 output
-of the tile, and ``decode_volume``'s wall over the whole lowpassed tile;
-then both kernels' device time under the profiler, with all codewords and
+older checkout that refuses the view says so), K1 on the tile (CUDA
+events around the wrapper, and its device time under the profiler), K2
+on the plain K1 output of the tile, and ``decode_volume``'s wall over the
+whole lowpassed tile;
+then K2's and K3's device time under the profiler, with all codewords and
 with the first alone (the work outside the codebook loop).
 It calls only wrappers that predate this mode, so a copy of this file in
 a checkout of an older commit times that commit: run both checkouts in
 one call, in turns, to compare them on one card.
+
+    python3 profile_decode.py --k1-tiling
+
+instead builds edited copies of K1's source (``csrc/fused_decode.cu``):
+its ring of staged planes at 3, 4, its own depth and 8 planes, and one
+that runs a quarter of the z fold's FMAs (wrong sums: a probe of what the
+fold's arithmetic costs); checks each against the library's K1 bit for
+bit on a random production-shape tile (16, 16, 1024, 1024) and times
+each (the kernel alone, CUDA events, medians of 20, two passes in turn),
+beside the byte bound and ``torch``'s ``copy_`` of the same bytes.
 
     python3 profile_decode.py --ufish
 
@@ -502,8 +514,78 @@ def lead_routes() -> None:
         torch.cuda.empty_cache()
 
 
+def k1_tiling() -> None:
+    """K1's design choices on the production tile shape (see the module
+    note): edited copies of its source, each built apart and called at the
+    wrapper's arguments, against the library's K1."""
+    import ctypes
+    import re
+    import subprocess
+
+    import torch
+
+    from merfish3d_tpu_torch import _build
+    from merfish3d_tpu_torch.ops import fused_decode as fd
+
+    log = chip_smoke.log
+    dev = torch.device("cuda")
+    source = (_build.SRC_DIR / "fused_decode.cu").read_text()
+    stages = int(re.search(r"constexpr int kZyStages = (\d+);", source).group(1))
+    variants = {f"ring of {n} planes": [(f"kZyStages = {stages};", f"kZyStages = {n};")]
+                for n in (3, 4, stages, 8)}
+    variants["a quarter of the fold's FMAs (wrong sums)"] = [("if (4 * g < nz) {", "if (4 * g < 4) {")]
+    out_dir = _build.BUILD_DIR / "k1_tiling"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "decode_core.cuh").write_text((_build.SRC_DIR / "decode_core.cuh").read_text())
+    procs = {}
+    for i, (name, edits) in enumerate(variants.items()):
+        text = source
+        for old, new in edits:
+            chip_smoke.require(old in text, f"{old!r} not in fused_decode.cu")
+            text = text.replace(old, new)
+        (out_dir / f"v{i}.cu").write_text(text)
+        procs[name] = subprocess.Popen(
+            [_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared", str(out_dir / f"v{i}.cu"),
+             "-o", str(out_dir / f"v{i}.so")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    argtypes = _build.kernels().zy_lowpass_f32.argtypes
+    for i, (name, p) in enumerate(procs.items()):
+        log_text = p.communicate()[0]
+        chip_smoke.require(p.returncode == 0, f"nvcc failed on {name}:\n{log_text[-3000:]}")
+        lib = ctypes.CDLL(str(out_dir / f"v{i}.so"))
+        lib.zy_lowpass_f32.argtypes = argtypes
+        libs[name] = lib
+
+    shape, sigma = (16, 16, 1024, 1024), (3.0, 1.0, 1.0)
+    g = torch.Generator(device=dev).manual_seed(0)
+    vol = torch.rand(shape, device=dev, generator=g) * 2000
+    tab = fd._zy_tables(shape[1], shape[2], sigma[0], sigma[1], dev)
+    out = torch.empty_like(vol)
+
+    def call(lib):
+        status = lib.zy_lowpass_f32(
+            vol.data_ptr(), tab.wz.data_ptr(), None, None, tab.taps_z, tab.ky.data_ptr(),
+            tab.ymap.data_ptr(), *shape, tab.ky.numel(), out.data_ptr(), _build.stream_handle(dev))
+        _build.check(status, "zy_lowpass_f32")
+
+    ref = fd.zy_lowpass_cuda(vol, sigma)
+    for name, lib in libs.items():
+        call(lib)
+        torch.cuda.synchronize()
+        log(f"K1, {name}: outputs bit for bit the library's: {torch.equal(out, ref)}")
+    times = {name: [chip_smoke.cuda_ms(lambda: call(lib), reps=20)] for name, lib in libs.items()}
+    for name, lib in reversed(list(libs.items())):
+        times[name].append(chip_smoke.cuda_ms(lambda: call(lib), reps=20))
+    bound_ms = vol.numel() * 8 / chip_smoke.HBM_BYTES_PER_S * 1e3
+    copy_ms = chip_smoke.cuda_ms(lambda: out.copy_(vol), reps=20)
+    log(f"K1 on {shape}: byte bound {bound_ms:.4f} ms; torch copy_ of the tile (the same bytes) "
+        f"{copy_ms:.4f} ms")
+    for name, (a, b) in times.items():
+        log(f"  {name}: {a:.4f} / {b:.4f} ms (first and second pass, in turn)")
+
+
 def decode_kernel_times(raw) -> None:
-    """K2 and K3 at the main path's shapes (see the module note)."""
+    """K1, K2 and K3 at the main path's shapes (see the module note)."""
     import statistics
 
     import torch
@@ -541,6 +623,9 @@ def decode_kernel_times(raw) -> None:
     log(f"decode_volume over the lowpassed tile {tuple(lp.shape)}: median wall "
         f"{statistics.median(walls):.4f} s of 5")
     del lp, view
+    ms = chip_smoke.cuda_ms(lambda: fd.zy_lowpass_cuda(tile, sigma))
+    dev_ms = device_ms(lambda: fd.zy_lowpass_cuda(tile, sigma), ("zy_lowpass",))
+    log(f"K1 on the tile {tuple(tile.shape)}: {ms:.4f} ms with the wrapper, device time {dev_ms:.4f} ms")
     inter = fd.zy_lowpass_plain(tile, sigma)
     ms = chip_smoke.cuda_ms(
         lambda: fd.x_lowpass_decode_cuda(inter, cbt, bg, nm, sigma_x=sigma[2], **thr))
@@ -585,6 +670,9 @@ def main() -> int:
 
     log = chip_smoke.log
     log(f"card: {chip_smoke.card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    if "--k1-tiling" in sys.argv[1:]:
+        k1_tiling()
+        return 0
     t0 = time.perf_counter()
     raw = chip_smoke.production_raw()
     log(f"generator {time.perf_counter() - t0:.3f} s")

@@ -62,7 +62,19 @@ def test_k3_matches_plain(cuda):
     assert torch.equal(no_scaled[0], k[0])
 
 
-@pytest.mark.parametrize("shape", [(16, 12, 40, 200), (16, 16, 33, 129), (4, 70, 24, 136)])
+# (bits, Z, Y, X) at the staged kernel's edges (segments of 32 rows up to 16
+# planes, 16 up to 32, 8 up to 64; 32 columns a block): Y below a segment,
+# Y 1, 3 and 5 against the 4-row halo, a ragged last segment, Z 1 and 64, X
+# not a multiple of 4 (4-byte copies) and below one block, 32 bits; 70 planes
+# take the direct kernel
+_K1_SHAPES = [
+    (16, 12, 40, 200), (16, 16, 33, 129), (4, 70, 24, 136), (16, 16, 20, 64),
+    (16, 16, 1, 64), (3, 5, 3, 130), (2, 12, 5, 97), (4, 1, 40, 64), (2, 64, 37, 100),
+    (2, 33, 19, 36), (32, 16, 70, 33), (2, 6, 96, 3),
+]
+
+
+@pytest.mark.parametrize("shape", _K1_SHAPES)
 def test_k1_matches_plain(cuda, shape):
     rng = np.random.default_rng(1)
     vol = torch.as_tensor((rng.random(shape) * 100).astype(np.float32), device=cuda)
@@ -70,6 +82,43 @@ def test_k1_matches_plain(cuda, shape):
     ref = fd.zy_lowpass_plain(vol, (3.0, 1.0, 1.0))
     torch.cuda.synchronize()
     assert (out - ref).abs().max().item() <= 1e-4 * vol.abs().max().item()
+
+
+# sigma (z, y): no z pass, the hermetic matrix's z, y taps past the register
+# window (21 taps: read from shared memory), one y tap
+@pytest.mark.parametrize("sigma", [(0.0, 1.0), (0.945, 1.0), (3.0, 2.6), (3.0, 0.0)])
+@pytest.mark.parametrize("shape", [(16, 12, 40, 200), (2, 64, 9, 64)])
+def test_k1_sigmas_match_plain(cuda, shape, sigma):
+    rng = np.random.default_rng(5)
+    vol = torch.as_tensor((rng.random(shape) * 100).astype(np.float32), device=cuda)
+    out = fd.zy_lowpass_cuda(vol, sigma)
+    ref = fd.zy_lowpass_plain(vol, sigma)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= 1e-4 * vol.abs().max().item()
+
+
+def test_k1_tables_built_once(cuda):
+    """A second call on the same shape and sigma builds and uploads no table:
+    the wrapper's cache answers it."""
+    vol = torch.ones((2, 7, 23, 40), device=cuda)
+    fd.zy_lowpass_cuda(vol, (3.0, 1.0, 1.0))
+    before = fd._zy_tables.cache_info()
+    out = fd.zy_lowpass_cuda(vol, (3.0, 1.0, 1.0))
+    after = fd._zy_tables.cache_info()
+    assert (after.hits, after.misses) == (before.hits + 1, before.misses)
+    torch.testing.assert_close(out, torch.ones_like(out), rtol=1e-6, atol=0)
+
+
+def test_k1_route(cuda):
+    """The route the kernel library reports: the staged kernel up to 64
+    planes, at least two blocks an SM at the main path's depth, one wave of
+    blocks on the production tile; the direct kernel deeper."""
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    r = fd.zy_route((16, 16, 1024, 1024), (3.0, 1.0, 1.0))
+    assert r["kernel"] == "staged" and r["seg_rows"] == 32 and r["tile_x"] == 32
+    assert r["blocks_per_sm"] >= 2 and r["grid"] == r["blocks_per_sm"] * sm
+    assert fd.zy_route((2, 4, 9, 64), (3.0, 1.0, 1.0))["grid"] == 4  # 2 bits x 2 column tiles
+    assert fd.zy_route((4, 70, 24, 136), (3.0, 1.0, 1.0))["kernel"] == "direct"
 
 
 def _assert_ids_near_ties(k_ids, p_ids, lowpassed, cbt, bg, nm, thr=None, tol=1e-4):
