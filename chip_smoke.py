@@ -51,13 +51,34 @@ Run from the root of a checkout. Phases, each raising on failure:
    encoded to ONNX and loaded as a published checkpoint would be: its
    seconds, planes/s and peak memory; random weights give meaningless
    maps, so it is not decoded). Cut to what is ported: no deformation, no
-   chromatic aberration;
+   chromatic aberration (phase 8 adds it);
 6. the camera geometry — one (32, 2048, 2048) bead pair with a known
    shift — through ``register_pair_to_fixed`` on CUDA, recovered within
-   0.3 px.
+   0.3 px;
+7. each affine warp class (translation, diagonal, general) over the
+   production tile's 16-bit device stack, timed, and on two bits held to
+   the CPU port within 1e-5 · max;
+8. the production tile rendered with the production chromatic injection
+   (translation (0.18, 0.42, -0.31) um, y/x scale 0.9982 on the second
+   emission channel, at the emitter; numpy in a worker process during
+   the build and phase 2) through fiducial registration (DoG, no decon) and
+   ``decode_pixels(estimate_chromatic_affines=True)`` with 3 iterations:
+   status ``affine_estimated``, translation within 0.12 um, y/x scale
+   within 0.002, F1 >= 0.5 beside phase 5's, the decode wall and the
+   shares of its warps and estimates;
+9. three bead channels (32, 1024, 1024) at 0.52, 0.59 and 0.67 um, the
+   two others through known full affines, through
+   ``run_chromatic_calibration(deconvolve=True, psf_model="vectorial")``:
+   each translation within 0.08 um and linear part within 0.005 of the
+   known one, RLGC iterations and walls; then the 0.67 um channel warped
+   onto the reference grid with its calibration (the general class), its
+   bead centroids within 0.3 px of the reference channel's.
 
 The launch counts of the eleven kernels are zeroed before phase 4 and read
-after phase 6: every kernel must have run on the main path. Then one
+after phase 6: every kernel must have run on the main path. They are
+zeroed again before phase 8 and read after phase 9: K1, K2, K3, K4, K5 and
+the DFT kernels of the bead solves must have run on the chromatic path.
+Then one
 production bit is solved twice more, through the kernels and through
 their plain versions, from the same generator seed, and so is one camera
 frame (the pair's fixed volume, padded to (48, 2176, 2176): K6, K7 and K8
@@ -78,12 +99,14 @@ from __future__ import annotations
 import contextlib
 import importlib.util
 import json
+import multiprocessing
 import re
 import shutil
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -837,19 +860,23 @@ def check_conv_kernel(raw, workdir: Path) -> tuple[dict, list[dict]]:
     return row, shapes
 
 
-def production_raw():
+def production_raw(chromatic: bool = False, shape=(16, 1024, 1024), n_spots: int = 2400):
     """The production tile's raw data (numpy generator, seed 21): one
     (16, 1024, 1024) tile x 16 bits, 2400 spots, 80 genes + 10 blanks, 8
     fiducial rounds rigidly shifted by up to 2 px
-    (``merfish3d_tpu/utils/production_case.py``)."""
+    (``merfish3d_tpu/utils/production_case.py``); with ``chromatic``, the
+    second emission channel rendered through the production injection
+    affine (``make_injection_affine``) at the emitter."""
     from merfish3d_tpu_torch.cli.simulation.convert_simulation_to_experiment import (
         generate_raw_experiment,
     )
+    from merfish3d_tpu_torch.cli.simulation.convert_to_datastore import make_injection_affine
 
     return generate_raw_experiment(
-        shape=(16, 1024, 1024), n_spots=2400, n_genes=80, n_blanks=10, seed=21,
+        shape=shape, n_spots=n_spots, n_genes=80, n_blanks=10, seed=21,
         voxel_size_zyx_um=(0.315, 0.098, 0.098), distribution="cells", n_cells=12,
         axial_sigma_um=0.44, tile_offset_px=(0.0, 0.0, 1024.0 - 205.0), round_shift_px=2.0,
+        chromatic_affine_zyx_um=make_injection_affine() if chromatic else None,
     )
 
 
@@ -1356,6 +1383,258 @@ def camera_case(fixed, moving) -> dict:
             "residual_px": float(np.abs(rec - np.asarray(CAMERA_SHIFT_PX)).max())}
 
 
+# ------------------------------------------------------- phases 7 to 9: chromatic
+# the production injection (convert_to_datastore.make_injection_affine)
+INJECTED_TRANSLATION_UM = (0.18, 0.42, -0.31)
+INJECTED_YX_SCALE = 0.9982
+CHROMATIC_TRANSLATION_TOL_UM = 0.12  # tests/test_cli_e2e.py's recovery tolerance
+CHROMATIC_SCALE_TOL = 0.002
+BEAD_WAVELENGTHS_UM = (0.52, 0.59, 0.67)
+BEAD_SHAPE = (32, 1024, 1024)
+BEAD_SPACING_UM = (0.315, 0.098, 0.098)
+BEAD_TRANSLATION_TOL_UM = 0.08  # tests/test_utils_misc.py's bead tolerance
+BEAD_LINEAR_TOL = 0.005
+BEAD_LANDING_TOL_PX = 0.3
+WARP_RTOL = 1e-5  # the card's warp vs the CPU port's: max |err| <= 1e-5 * max |x|
+
+
+def bead_affines() -> dict:
+    """The known chromatic affine of each non-reference bead channel (µm,
+    channel → reference, the calibration's convention): a few tenths of a
+    µm of translation, lateral scale ~0.998, shear ~0.002."""
+    out = {}
+    for wl, t, scale, shear in ((0.59, (0.12, 0.28, -0.21), (0.998, 0.9985), (0.002, -0.0015)),
+                                (0.67, (0.2, -0.33, 0.37), (0.9978, 0.998), (-0.002, 0.0018))):
+        a = np.eye(4)
+        a[:3, 3] = t
+        a[1, 1], a[2, 2] = scale
+        a[1, 2], a[2, 1] = shear
+        out[wl] = a
+    return out
+
+
+def bead_channels(seed: int = 13, n_beads: int = 800, shape=BEAD_SHAPE) -> list:
+    """Three bead channels (uint16 Poisson counts over a background of 40,
+    the port generator's Gaussian renderer and production PSF widths): the
+    reference channel at the beads' positions, each other channel at
+    inv(A) of them, A its known affine."""
+    from merfish3d_tpu_torch.utils.simulation import _render_bit_volume
+
+    rng = np.random.default_rng(seed)
+    spacing = np.asarray(BEAD_SPACING_UM)
+    beads_px = np.column_stack([rng.uniform(3, shape[0] - 3, n_beads), rng.uniform(12, shape[1] - 12, n_beads),
+                                rng.uniform(12, shape[2] - 12, n_beads)])
+    amps = rng.uniform(500, 1500, n_beads)
+    homo = np.concatenate([beads_px * spacing, np.ones((n_beads, 1))], axis=1)
+    affines = bead_affines()
+    out = []
+    for wl in BEAD_WAVELENGTHS_UM:
+        inv = np.linalg.inv(affines.get(wl, np.eye(4)))
+        pts = (homo @ inv.T)[:, :3] / spacing
+        vol = _render_bit_volume(shape, pts, amps, sigma_zyx=(0.44 / 0.315, 1.4, 1.4))
+        out.append(rng.poisson(vol + 40).astype(np.uint16))
+    return out
+
+
+def chromatic_inputs():
+    """The chromatic phases' inputs, rendered with numpy in a worker
+    process while the card runs the earlier phases: the production tile
+    with the injection affine at render time, and the bead channels."""
+    return production_raw(chromatic=True), bead_channels()
+
+
+def sync(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def warp_classes_case(raw) -> dict:
+    """Phase 7: each warp class over the production tile's 16-bit device
+    stack (CUDA events), and the card's result on two bits against the CPU
+    port's."""
+    import torch
+
+    from merfish3d_tpu_torch.cli.simulation.convert_to_datastore import make_injection_affine
+    from merfish3d_tpu_torch.ops import warp
+
+    spacing = raw.voxel_size_zyx_um
+    stack = torch.as_tensor(raw.bits[0], device="cuda").to(torch.float32)
+    translation = np.eye(4)
+    translation[:3, 3] = np.asarray((0.37, -1.6, 2.3)) * spacing
+    out = {}
+    for kind, affine in (("translate", translation), ("diagonal", make_injection_affine()),
+                         ("general", bead_affines()[0.59])):
+        transforms = np.repeat(affine[None], stack.shape[0], axis=0)
+        classes = warp._affine_batch_classes(transforms, spacing, stack.shape[0])[2]
+        require({k: idx.size for idx, k in classes}[kind] == stack.shape[0], f"the {kind} affine left its class")
+        ms = cuda_ms(lambda: warp.warp_affine_batch_device(stack, transforms, spacing), reps=3)
+        card = warp.warp_affine_batch_device(stack[:2], transforms[:2], spacing).cpu()
+        host = warp.warp_affine_batch_device(stack[:2].cpu(), transforms[:2], spacing)
+        err = float((card - host).abs().max() / host.abs().max())
+        out[kind] = {"ms": ms, "voxels_per_s": stack.numel() / (ms * 1e-3), "max_rel_err_vs_cpu": err}
+        require(err <= WARP_RTOL, f"the {kind} warp on the card disagrees with the CPU port")
+    del stack
+    return out
+
+
+def chromatic_production_case(raw, device="cuda", minimum_pixels: int = 28) -> dict:
+    """Phase 8: the production tile rendered with the injected chromatic
+    aberration, through fiducial registration (DoG, no decon) and
+    ``decode_pixels(estimate_chromatic_affines=True)`` with 3 iterations;
+    the decode stage's wall, the synchronized walls of its warps, its
+    estimates and its region statistics, the recovered affine and F1."""
+    from merfish3d_tpu_torch.cli.simulation.calculate_f1 import match_spots_f1
+    from merfish3d_tpu_torch.cli.simulation.convert_to_datastore import convert_data
+    from merfish3d_tpu_torch.cli.simulation.pixeldecode import decode_pixels
+    from merfish3d_tpu_torch.pipeline import decode_warping
+    from merfish3d_tpu_torch.pipeline import decoder as decoder_module
+    from merfish3d_tpu_torch.pipeline.registration import DataRegistration
+
+    store = convert_data(raw, device=device)
+    DataRegistration(store, device=device, decon_fiducial=False, decon_readout=False,
+                     ufish_model="dog").register_all_tiles()
+    walls = {"warp": [], "estimate": [], "extract": []}
+
+    def timed(module, name, key):
+        inner = getattr(module, name)
+
+        def run(*args, **kwargs):
+            sync(device)
+            t0 = time.perf_counter()
+            result = inner(*args, **kwargs)
+            sync(device)
+            walls[key].append(time.perf_counter() - t0)
+            return result
+        setattr(module, name, run)
+        return inner
+
+    originals = [(decode_warping, "warp_bit_images_to_reference",
+                  timed(decode_warping, "warp_bit_images_to_reference", "warp")),
+                 (decoder_module, "estimate_chromatic_affines_from_barcodes",
+                  timed(decoder_module, "estimate_chromatic_affines_from_barcodes", "estimate")),
+                 (decoder_module, "component_stats_host",
+                  timed(decoder_module, "component_stats_host", "extract"))]
+    try:
+        sync(device)
+        t0 = time.perf_counter()
+        table = decode_pixels(store, device=device, minimum_pixels=minimum_pixels,
+                              magnitude_threshold=(0.9, 10.0), num_tiles=1, num_iterations=3,
+                              estimate_chromatic_affines=True)
+        sync(device)
+        decode_s = time.perf_counter() - t0
+    finally:
+        for module, name, inner in originals:
+            setattr(module, name, inner)
+    (channel,) = [c for c in store.load_chromatic_affine_transforms_zyx_um()["channels"].values()
+                  if not c["reference_channel"]]
+    affine = np.asarray(channel["affine_zyx_um"])
+    return {
+        "store": store,
+        "status": channel["status"],
+        "affine_zyx_um": affine.round(5).tolist(),
+        "translation_error_um": np.abs(affine[:3, 3] - np.asarray(INJECTED_TRANSLATION_UM)).round(4).tolist(),
+        "yx_scale": [float(affine[1, 1]), float(affine[2, 2])],
+        "used_pairs": channel["diagnostics"].get("path_fits", [{}])[0].get("fit", {}).get("used_pairs"),
+        "decode_s": decode_s,
+        "warp_s": walls["warp"],
+        "estimate_s": walls["estimate"],
+        "extract_s": walls["extract"],
+        "warp_share": sum(walls["warp"]) / decode_s,
+        "estimate_share": sum(walls["estimate"]) / decode_s,
+        "extract_share": sum(walls["extract"]) / decode_s,
+        "f1": match_spots_f1(table, raw.ground_truth, radius_um=1.0),
+    }
+
+
+def bead_calibration_case(store, channels, device="cuda") -> dict:
+    """Phase 9: run_chromatic_calibration(deconvolve=True,
+    psf_model="vectorial") of the bead channels into ``store`` (RLGC
+    iterations and walls recorded), the recovered affines against the known
+    ones, then the 0.67 µm channel warped onto the reference grid with its
+    calibration (the general class) and its bead centroids against the
+    reference channel's."""
+    import torch
+
+    from merfish3d_tpu_torch.ops import warp
+    from merfish3d_tpu_torch.utils import chromatic_calibration as cal
+
+    solves = {"iterations": [], "seconds": []}
+    inner = cal.rlgc
+
+    def recorded(*args, **kwargs):
+        sync(device)
+        t0 = time.perf_counter()
+        out, n = inner(*args, return_iters=True, **kwargs)
+        sync(device)
+        solves["seconds"].append(time.perf_counter() - t0)
+        solves["iterations"].append(int(n))
+        return out
+
+    vols = [torch.as_tensor(c, device=device) for c in channels]
+    cal.rlgc = recorded
+    try:
+        sync(device)
+        t0 = time.perf_counter()
+        calibration = cal.run_chromatic_calibration(store, vols, BEAD_WAVELENGTHS_UM, deconvolve=True,
+                                                    psf_model="vectorial", ufish_model="dog", device=device)
+        sync(device)
+        wall = time.perf_counter() - t0
+    finally:
+        cal.rlgc = inner
+    result = {"calibration_s": wall, "rlgc_iterations": solves["iterations"], "rlgc_s": solves["seconds"],
+              "channels": {}}
+    spacing = np.asarray(BEAD_SPACING_UM)
+    for wl, truth in bead_affines().items():
+        ch = calibration["channels"][f"wavelength_{wl:.6f}"]
+        est = np.asarray(ch["affine_zyx_um"])
+        result["channels"][wl] = {
+            "status": ch["status"], "pairs": ch["diagnostics"].get("n_pairs"),
+            "inliers": ch["diagnostics"].get("n_inliers"),
+            "translation_error_um": np.abs(est[:3, 3] - truth[:3, 3]).round(4).tolist(),
+            "linear_error": float(np.abs(est[:3, :3] - truth[:3, :3]).max()),
+            "affine_zyx_um": est.round(5).tolist(),
+        }
+    est = np.asarray(calibration["channels"]["wavelength_0.670000"]["affine_zyx_um"])
+    transform = np.linalg.inv(est)
+    require(warp._warp_class(warp.transform_to_pixel(transform, spacing)[0]) == "general",
+            "the bead calibration is not a general affine")
+    sync(device)
+    t0 = time.perf_counter()
+    warped = warp.warp_affine(vols[2], transform_zyx_um=transform, spacing_zyx_um=spacing,
+                              reference_shape=tuple(vols[0].shape))
+    sync(device)
+    result["general_warp_s"] = time.perf_counter() - t0
+    ref_px = cal.detect_beads(vols[0])
+    got_px = cal.detect_beads(warped)
+    src, tgt = cal.mutual_nearest_neighbors(got_px * spacing, ref_px * spacing, 1.0)
+    windows = np.round(tgt / spacing).astype(int)
+    landing = np.abs(bead_centroids(warped.cpu().numpy(), windows)
+                     - bead_centroids(vols[0].to(torch.float32).cpu().numpy(), windows)).max(axis=1)
+    result.update({"beads_reference": len(ref_px), "beads_warped": len(got_px), "beads_matched": len(src),
+                   "landing_px_max": float(landing.max()) if len(src) else float("inf"),
+                   "landing_px_median": float(np.median(landing)) if len(src) else float("inf")})
+    return result
+
+
+def bead_centroids(vol: np.ndarray, centers_px: np.ndarray, half=(3, 5, 5)) -> np.ndarray:
+    """Centroids (px) over the (7, 11, 11) window at each of
+    ``centers_px``, less the volume's median background. The landing
+    check measures both volumes in the same windows: detect_beads refines
+    over 3x3x3 voxels around its own peak, which locks a centroid toward
+    that voxel by up to ~0.7 px where noise picks its neighbour."""
+    background = float(np.median(vol))
+    out = np.empty(centers_px.shape, np.float64)
+    for i, c in enumerate(centers_px):
+        lo = np.maximum(c - half, 0)
+        hi = np.minimum(c + np.asarray(half) + 1, vol.shape)
+        roi = np.clip(vol[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]].astype(np.float64) - background, 0, None)
+        grids = np.meshgrid(*[np.arange(a, b) for a, b in zip(lo, hi)], indexing="ij")
+        out[i] = [(roi * g).sum() / roi.sum() for g in grids]
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if importlib.util.find_spec("torch") is None:
@@ -1370,6 +1649,57 @@ def main() -> int:
         print("run chip_smoke.py from the root of a merfish3d-tpu checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    # one worker renders the chromatic phases' inputs with numpy during the
+    # build and phase 2
+    pool = ProcessPoolExecutor(max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        return smoke(pool, t_start)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def reset_launch_counts() -> None:
+    from merfish3d_tpu_torch.ops import conv2d as c2
+    from merfish3d_tpu_torch.ops import decode as dec
+    from merfish3d_tpu_torch.ops import fused_decode as fd
+    from merfish3d_tpu_torch.ops import pfft
+    from merfish3d_tpu_torch.ops import rlgc_kernels as rk
+
+    dec.launch_count = 0
+    c2.launch_count = 0
+    c2.launch_count_direct = 0
+    fd.launch_count_zy = 0
+    fd.launch_count_x_decode = 0
+    for counts in (pfft.launch_count, pfft.leading_route_count, rk.launch_count):
+        for name in counts:
+            counts[name] = 0
+
+
+def launch_counts() -> dict:
+    """Each kernel's launches since the last reset, by its row name."""
+    from merfish3d_tpu_torch.ops import conv2d as c2
+    from merfish3d_tpu_torch.ops import decode as dec
+    from merfish3d_tpu_torch.ops import fused_decode as fd
+    from merfish3d_tpu_torch.ops import pfft
+    from merfish3d_tpu_torch.ops import rlgc_kernels as rk
+
+    return {
+        "decode_chunk_f32 (K3)": dec.launch_count,
+        "zy_lowpass_f32 (K1)": fd.launch_count_zy,
+        "x_lowpass_decode_f32 (K2)": fd.launch_count_x_decode,
+        "dft_trailing (K6)": pfft.launch_count["dft_trailing"],
+        "dft_middle (K7)": pfft.launch_count["dft_middle"],
+        "dft_leading (K8)": pfft.launch_count["dft_leading"],
+        "dft_zx (K10)": pfft.launch_count["dft_zx"],
+        "dft_mid_conv (K9)": pfft.launch_count["dft_mid_conv"],
+        "ratio_kld_f32 (K4)": rk.launch_count["ratio_kld"],
+        "update_select_f32 (K5)": rk.launch_count["update_select"],
+        "conv2d_same (K11)": c2.launch_count,
+    }
+
+
+def smoke(pool, t_start: float) -> int:
+    import torch
 
     # -- 1. environment
     card = card_line()
@@ -1383,15 +1713,15 @@ def main() -> int:
     import merfish3d_tpu_torch  # noqa: F401  (sets the full-f32 precision flags)
     from merfish3d_tpu_torch import _build, native
     from merfish3d_tpu_torch.ops import conv2d as c2
-    from merfish3d_tpu_torch.ops import decode as dec
-    from merfish3d_tpu_torch.ops import fused_decode as fd
     from merfish3d_tpu_torch.ops import pfft
-    from merfish3d_tpu_torch.ops import rlgc_kernels as rk
 
     require(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32,
             "TF32 must be off")
 
-    # -- 2. build
+    # -- 2. build; the chromatic inputs render meanwhile, so that the worker
+    # competes with the build and the generators, not with the timed phases
+    chromatic_future = pool.submit(chromatic_inputs)
+    t_submit = time.perf_counter()
     t0 = time.perf_counter()
     _build.kernels()
     t_cuda = time.perf_counter() - t0
@@ -1426,14 +1756,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 4 + 5 + 6. the main path, counting launches
-    dec.launch_count = 0
-    c2.launch_count = 0
-    c2.launch_count_direct = 0
-    fd.launch_count_zy = 0
-    fd.launch_count_x_decode = 0
-    for counts in (pfft.launch_count, pfft.leading_route_count, rk.launch_count):
-        for name in counts:
-            counts[name] = 0
+    reset_launch_counts()
     hermetic = [(*key, False, pin) for key, pin in HERMETIC_PINS.items()]
     hermetic += [(*key, True, pin) for key, pin in CNN_PINS.items()]
     hermetic_f1 = {}
@@ -1518,24 +1841,79 @@ def main() -> int:
         f"{camera['residual_px']:.3f} px)")
     require(camera["residual_px"] <= SHIFT_TOL_PX, "the camera pair's shift was not recovered")
 
-    launches = {
-        "decode_chunk_f32 (K3)": dec.launch_count,
-        "zy_lowpass_f32 (K1)": fd.launch_count_zy,
-        "x_lowpass_decode_f32 (K2)": fd.launch_count_x_decode,
-        "dft_trailing (K6)": pfft.launch_count["dft_trailing"],
-        "dft_middle (K7)": pfft.launch_count["dft_middle"],
-        "dft_leading (K8)": pfft.launch_count["dft_leading"],
-        "dft_zx (K10)": pfft.launch_count["dft_zx"],
-        "dft_mid_conv (K9)": pfft.launch_count["dft_mid_conv"],
-        "ratio_kld_f32 (K4)": rk.launch_count["ratio_kld"],
-        "update_select_f32 (K5)": rk.launch_count["update_select"],
-        "conv2d_same (K11)": c2.launch_count,
-    }
+    launches = launch_counts()
     log(f"launch counts on the main path: {launches}; K8's by route {pfft.leading_route_count}; "
         f"K11's FP32-core (f32-operand) kernel {c2.launch_count_direct}")
     require(all(n > 0 for n in launches.values()), "a kernel of the path never launched")
     require(c2.launch_count_direct == 0, "a U-Net convolution missed the tensor-core kernel")
     require(sorted(launches) == sorted(row["name"] for row in kernels), "a kernel has no row")
+
+    # -- 7. each warp class on the card
+    warps = warp_classes_case(raw)
+    torch.cuda.empty_cache()
+    for kind, w in warps.items():
+        log(f"warp class {kind} over the production tile's 16 bits (16, 1024, 1024) on {card}: "
+            f"{w['ms']:.3f} ms ({w['voxels_per_s']:.4g} voxels/s); two bits against the CPU port: "
+            f"max |err| / max |x| {w['max_rel_err_vs_cpu']:.3e} (limit {WARP_RTOL})")
+
+    # -- 8 + 9. the chromatic path, counting launches
+    t0 = time.perf_counter()
+    raw_chrom, beads = chromatic_future.result()
+    log(f"chromatic inputs (numpy, a worker process, {time.perf_counter() - t_submit:.1f} s since submitted): "
+        f"waited {time.perf_counter() - t0:.1f} s")
+    reset_launch_counts()
+    chrom = chromatic_production_case(raw_chrom)
+    chrom_store = chrom.pop("store")
+    del raw_chrom
+    torch.cuda.empty_cache()
+    base_f1 = productions["nodecon"]["f1"]["f1"]
+    log(f"production geometry with the injected chromatic aberration (translation "
+        f"{INJECTED_TRANSLATION_UM} um, y/x scale {INJECTED_YX_SCALE}, second emission channel, at render "
+        f"time; fiducial registration, DoG, no decon; decode with the chromatic estimate, 3 iterations) on "
+        f"{card}: status {chrom['status']}, |translation error| {chrom['translation_error_um']} um, y/x scale "
+        f"{chrom['yx_scale']}, used pairs {chrom['used_pairs']}")
+    log(f"  decode stage {chrom['decode_s']:.2f} s, of which the decode warps {sum(chrom['warp_s']):.3f} s "
+        f"({100 * chrom['warp_share']:.2f} %, {len(chrom['warp_s'])} warps of the 16-bit stack: "
+        f"{[round(v, 4) for v in chrom['warp_s']]} s) and the chromatic estimates "
+        f"{sum(chrom['estimate_s']):.3f} s ({100 * chrom['estimate_share']:.2f} %: "
+        f"{[round(v, 4) for v in chrom['estimate_s']]} s); region statistics with the centroid sums "
+        f"{sum(chrom['extract_s']):.3f} s ({100 * chrom['extract_share']:.2f} %: "
+        f"{[round(v, 4) for v in chrom['extract_s']]} s)")
+    log(f"  F1 {chrom['f1']['f1']:.4f} (tp {chrom['f1']['true_positives']} fp {chrom['f1']['false_positives']} "
+        f"fn {chrom['f1']['false_negatives']}); without aberration (phase 5) {base_f1:.4f}")
+    require(chrom["status"] == "affine_estimated", "the chromatic affine was not estimated")
+    require(max(chrom["translation_error_um"]) <= CHROMATIC_TRANSLATION_TOL_UM,
+            "the chromatic translation was not recovered")
+    require(max(abs(v - INJECTED_YX_SCALE) for v in chrom["yx_scale"]) <= CHROMATIC_SCALE_TOL,
+            "the chromatic scale was not recovered")
+    require(chrom["f1"]["f1"] >= 0.5, "chromatic production F1 below 0.5")
+    bead = bead_calibration_case(chrom_store, beads)
+    del beads, chrom_store
+    torch.cuda.empty_cache()
+    log(f"bead calibration, 3 channels {BEAD_SHAPE} at {BEAD_WAVELENGTHS_UM} um (RLGC with vectorial PSFs, "
+        f"then bead detection on the card) on {card}: {bead['calibration_s']:.3f} s, RLGC iterations "
+        f"{bead['rlgc_iterations']} in {[round(v, 3) for v in bead['rlgc_s']]} s")
+    for wl, ch in bead["channels"].items():
+        log(f"  {wl} um: status {ch['status']}, pairs {ch['pairs']} (inliers {ch['inliers']}), |translation "
+            f"error| {ch['translation_error_um']} um (limit {BEAD_TRANSLATION_TOL_UM}), max |linear error| "
+            f"{ch['linear_error']:.5f} (limit {BEAD_LINEAR_TOL})")
+        require(ch["status"] == "affine_estimated" and max(ch["translation_error_um"]) <= BEAD_TRANSLATION_TOL_UM
+                and ch["linear_error"] <= BEAD_LINEAR_TOL, f"the {wl} um bead affine was not recovered")
+    log(f"  0.67 um channel warped onto the reference with its calibration (general class, "
+        f"{bead['general_warp_s']:.4f} s): beads {bead['beads_warped']} / reference {bead['beads_reference']}, "
+        f"matched {bead['beads_matched']}, landing max {bead['landing_px_max']:.3f} px, median "
+        f"{bead['landing_px_median']:.3f} px (limit {BEAD_LANDING_TOL_PX})")
+    require(bead["beads_matched"] >= 0.9 * bead["beads_reference"]
+            and bead["landing_px_max"] <= BEAD_LANDING_TOL_PX, "warped beads did not land on the reference's")
+    chromatic_launches = launch_counts()
+    log(f"launch counts on the chromatic path: {chromatic_launches}")
+    require(all(chromatic_launches[k] > 0 for k in ("decode_chunk_f32 (K3)", "zy_lowpass_f32 (K1)",
+                                                     "x_lowpass_decode_f32 (K2)", "ratio_kld_f32 (K4)",
+                                                     "update_select_f32 (K5)"))
+            and (min(chromatic_launches["dft_zx (K10)"], chromatic_launches["dft_mid_conv (K9)"]) > 0
+                 or min(chromatic_launches[k] for k in ("dft_trailing (K6)", "dft_middle (K7)",
+                                                        "dft_leading (K8)")) > 0),
+            "a kernel of the chromatic path never launched")
 
     # one production bit through the kernels and through the plain versions
     twice = solve_twice(raw)
@@ -1592,7 +1970,9 @@ def main() -> int:
         row["launches"] = launches[row["name"]]
     summary = {"hermetic_f1": hermetic_f1, "production": {}, "fiducial_decon": fid, "c32_tile": c32,
                "k11_layers": k11_shapes, "camera_pair": camera, "solve_twice": twice,
-               "camera_frame_solve": cam_solve, "camera_frame_tiled": tiled, "dft_times": DFT_TIMES}
+               "camera_frame_solve": cam_solve, "camera_frame_tiled": tiled, "dft_times": DFT_TIMES,
+               "warp_classes": warps, "chromatic_production": {**chrom, "f1": chrom["f1"]["f1"]},
+               "bead_calibration": bead, "chromatic_launches": chromatic_launches}
     for key, prod in productions.items():
         summary["production"][key] = {k: v for k, v in prod.items() if k != "f1"}
         summary["production"][key]["f1"] = prod["f1"]["f1"]

@@ -9,9 +9,12 @@ the reference happens here in the same order, including draws whose
 values this slice does not use.
 
 The production renderer applies the reference's rigid per-round shifts
-(``round_shift_px``). Not ported: smooth deformation and chromatic
-injection (their registration stages are not ported yet); the renderer
-keeps their random draws, so the output stays identical.
+(``round_shift_px``) and, with ``chromatic_affine_zyx_um``, its
+emitter-side chromatic aberration: the second emission channel's spots
+are placed at the inverse affine of their position, in µm in the tile's
+frame. Not ported: smooth deformation (its registration stage is not
+ported yet); the renderer keeps its random draws, so the output stays
+identical.
 """
 
 from __future__ import annotations
@@ -38,6 +41,8 @@ class RawExperiment:
     # production renderer: the injected rigid shift of each round's field
     # (px, round 0 the reference), the reference's GT_misregistration.json
     round_shifts_px_zyx: Optional[np.ndarray] = None  # (rounds, 3)
+    # production renderer: the chromatic affine injected at the emitter
+    chromatic_affine_zyx_um: Optional[np.ndarray] = None  # (4, 4)
     # the reference's metadata.json optics
     fiducial_wavelengths_um: tuple = (0.488, 0.520)  # excitation, emission
     na: float = 1.35
@@ -72,6 +77,7 @@ def generate_raw_experiment(
     axial_sigma_um: float | None = None,
     tile_offset_px=None,
     round_shift_px: float = 0.0,
+    chromatic_affine_zyx_um=None,
 ) -> RawExperiment:
     """Generate a synthetic raw acquisition.
 
@@ -81,7 +87,10 @@ def generate_raw_experiment(
     ``tile_offset_px`` set selects the production renderer: one global
     field imaged by ``n_tiles`` tiles at stage offsets
     ``tile_offset_px * tile_idx``, each moving round's beads and spots
-    shifted rigidly by up to ``round_shift_px`` px (z scaled by 0.25)."""
+    shifted rigidly by up to ``round_shift_px`` px (z scaled by 0.25), and
+    with ``chromatic_affine_zyx_um`` its odd bits (the second emission
+    wavelength) imaged through that chromatic aberration: stored(p) =
+    true(A·p), the emitter rendered at A⁻¹ of its position."""
     rng = np.random.default_rng(seed)
     axial_step = float(voxel_size_zyx_um[0])
     if axial_sigma_um is not None:
@@ -107,7 +116,7 @@ def generate_raw_experiment(
             n_rounds=n_rounds, n_spots=n_spots, n_tiles=n_tiles, spacing=spacing,
             sigma_zyx=sigma_zyx, tile_offset_px=np.asarray(tile_offset_px, np.float64),
             distribution=distribution, n_cells=n_cells, common=common,
-            round_shift_px=float(round_shift_px),
+            round_shift_px=float(round_shift_px), chromatic_affine_zyx_um=chromatic_affine_zyx_um,
         )
 
     fiducial = np.empty((n_tiles, n_rounds) + tuple(shape), np.uint16)
@@ -174,9 +183,11 @@ def generate_raw_experiment(
 def _production_tiles(
     rng, *, shape, matrix, gene_ids, n_bits, n_rounds, n_spots, n_tiles,
     spacing, sigma_zyx, tile_offset_px, distribution, n_cells, common, round_shift_px,
+    chromatic_affine_zyx_um=None,
 ) -> RawExperiment:
     """Production-geometry renderer: one global spot/bead field imaged by
-    overlapping tiles, each moving round rigidly shifted."""
+    overlapping tiles, each moving round rigidly shifted, the second
+    emission channel optionally chromatically aberrated."""
     shape = np.asarray(shape, int)
     offsets_px = [tile_offset_px * t for t in range(n_tiles)]
     extent_px = shape.astype(np.float64) + offsets_px[-1]
@@ -237,9 +248,21 @@ def _production_tiles(
             inside = np.all((local > -5) & (local < shape.astype(float) + 5), axis=1)
             fid = _render_bit_volume(shape_t, local[inside], bead_amps[inside], sigma_zyx=sigma_zyx)
             fiducial[tile_idx, r] = rng.poisson(fid + 40).astype(np.uint16)
+        inv_chromatic = (
+            np.linalg.inv(np.asarray(chromatic_affine_zyx_um, np.float64))
+            if chromatic_affine_zyx_um is not None
+            else None
+        )
         for b in range(n_bits):
             on = matrix[genes, b] > 0
-            local = global_spots[on] + shifts[b // 2] - offset
+            moved = global_spots[on] + shifts[b // 2]
+            if inv_chromatic is not None and b % 2 == 1:
+                # the emitter appears at A⁻¹·q: the affine acts on µm in
+                # this tile's frame, the contract the decoder inverts
+                local_um = (moved - offset) * spacing
+                local_um = local_um @ inv_chromatic[:3, :3].T + inv_chromatic[:3, 3]
+                moved = local_um / spacing + offset
+            local = moved - offset
             inside = np.all((local > -5) & (local < shape.astype(float) + 5), axis=1)
             vol = _render_bit_volume(
                 shape_t, local[inside], amps[on][inside], sigma_zyx=sigma_zyx
@@ -251,5 +274,8 @@ def _production_tiles(
         ground_truth=_gt_columns(gene_ids, genes, global_spots, -1, spacing),
         stage_positions_zyx_um=np.asarray(stage_positions),
         round_shifts_px_zyx=shifts,
+        chromatic_affine_zyx_um=(
+            None if chromatic_affine_zyx_um is None else np.asarray(chromatic_affine_zyx_um, np.float64)
+        ),
         **common,
     )

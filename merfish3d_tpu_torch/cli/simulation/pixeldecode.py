@@ -1,7 +1,8 @@
 """Pixel decoding with the simulation defaults (counterpart of
 ``decode_pixels`` in ``merfish3d_tpu/cli/simulation/pixeldecode.py``):
 magnitude window (0.9, 10.0), minimum component size 28 voxels (3D
-simulation), blank-fraction filter. The port's entry point."""
+simulation), blank-fraction filter; optionally the decode-time chromatic
+estimate. The port's entry point."""
 
 from __future__ import annotations
 
@@ -22,15 +23,19 @@ def decode_pixels(
     num_iterations: int = 3,
     filter_method: str = "blank_fraction",
     target_misid_rate: float = 0.05,
+    estimate_chromatic_affines: bool = False,
     lowpass_sigma=(3.0, 1.0, 1.0),
 ) -> dict:
-    """Normalization optimization, then the final decode and filter.
-    Returns the filtered decoded-features table."""
+    """Normalization optimization (with ``estimate_chromatic_affines``,
+    the chromatic affines estimated after each pass and saved to the
+    store), then the final decode and filter. Returns the filtered
+    decoded-features table."""
     decoder = PixelDecoder(
         store,
         device=device,
         magnitude_threshold=tuple(magnitude_threshold),
         minimum_pixels=minimum_pixels,
+        estimate_chromatic_affines=estimate_chromatic_affines,
     )
     decoder.optimize_normalization_by_decoding(
         n_random_tiles=num_tiles,

@@ -13,14 +13,42 @@ its 0-based round. ``channel_psfs`` holds one PSF per channel, the
 fiducial channel first and then the readout emission wavelengths in
 order, with the objective's ``na`` and immersion ``ri``; registration
 deconvolves with them.
-Tables are ``dict[str, np.ndarray]`` of equal-length columns.
+Tables are ``dict[str, np.ndarray]`` of equal-length columns. The
+chromatic calibration is the reference's JSON payload, kept as the JSON
+round trip of what was saved.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import json
+from collections.abc import Mapping
+from typing import Any, Optional
 
 import numpy as np
+
+
+def _maybe_float(value):
+    try:
+        return float(value)
+    except (TypeError, ValueError):
+        return None
+
+
+def _json_safe(value: Any) -> Any:
+    """numpy scalars and arrays as JSON types."""
+    if isinstance(value, np.ndarray):
+        return [_json_safe(v) for v in value.tolist()]
+    if isinstance(value, np.integer):
+        return int(value)
+    if isinstance(value, np.floating):
+        return float(value)
+    if isinstance(value, np.bool_):
+        return bool(value)
+    if isinstance(value, dict):
+        return {str(k): _json_safe(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return [_json_safe(v) for v in value]
+    return value
 
 
 class ArrayStore:
@@ -57,6 +85,14 @@ class ArrayStore:
         self.feature_predictor: dict[tuple[int, int], np.ndarray] = {}  # u8 k/255
         self.round_transforms: dict[tuple[int, int], np.ndarray] = {}  # 4x4 µm
         self.global_xforms: dict[int, tuple] = {}  # (affine, origin, spacing)
+        # (field, attrs) by (tile, round): the decode warp refuses them
+        self.flow_fields: dict[tuple[int, int], tuple] = {}
+        self.chromatic_calibration: dict = {}
+        self.chromatic_diagnostics: Optional[dict] = None
+        # bumped by every calibration save: a warped stack built before it is stale
+        self.chromatic_version = 0
+        # the affine convert_data injected, as the reference's injected_chromatic_affine.json
+        self.injected_chromatic_affine: Optional[np.ndarray] = None
         self.normalization_vectors: dict[str, tuple[np.ndarray, np.ndarray]] = {}
         self.iteration_checkpoints: dict[int, list[dict]] = {}
         self.decoded_tables: dict[int, dict] = {}
@@ -145,8 +181,65 @@ class ArrayStore:
         return self.round_transforms[(tile, round_idx)]
 
     def chromatic_transform(self, emission_um: float) -> np.ndarray:
-        """No chromatic calibration is stored here: identity."""
-        return np.eye(4)
+        """The stored chromatic affine of an emission wavelength (float32),
+        identity without one."""
+        return self.load_chromatic_affine_transform_zyx_um(wavelength_um=emission_um)
+
+    # ---------------------------------------------------------- chromatic
+    def save_chromatic_affine_transforms_zyx_um(
+        self, calibration: Mapping[str, Any], diagnostics: Optional[dict] = None
+    ) -> None:
+        """Per-channel 4x4 physical chromatic affines. Structured payload
+        ``{"channels": {name: {"channel_index", "wavelength_um",
+        "affine_zyx_um"}}}``; a flat ``{name: 4x4}`` mapping is normalized
+        to it, the name read as the wavelength where it is a number."""
+        calibration = dict(calibration)
+        if "channels" not in calibration:
+            calibration = {
+                "channels": {
+                    str(k): {
+                        "channel_index": i,
+                        "wavelength_um": _maybe_float(k),
+                        "affine_zyx_um": np.asarray(v, dtype=np.float64).reshape(4, 4).tolist(),
+                    }
+                    for i, (k, v) in enumerate(calibration.items())
+                }
+            }
+        self.chromatic_calibration = json.loads(json.dumps(_json_safe(calibration)))
+        if diagnostics is not None:
+            self.chromatic_diagnostics = json.loads(json.dumps(_json_safe(diagnostics)))
+        self.chromatic_version += 1
+
+    def load_chromatic_affine_transforms_zyx_um(self) -> dict[str, Any]:
+        """The structured calibration payload (may be {})."""
+        return dict(self.chromatic_calibration)
+
+    def load_chromatic_affine_transform_zyx_um(
+        self,
+        channel_name: Optional[str] = None,
+        channel_index: Optional[int] = None,
+        wavelength_um: Optional[float] = None,
+    ) -> np.ndarray:
+        """One chromatic affine (float32): the channels matching by name,
+        then by index, then by ``np.isclose`` on the wavelength; the first
+        with an affine wins, identity when none has one."""
+        channels = self.chromatic_calibration.get("channels", {})
+        if not isinstance(channels, Mapping):
+            return np.eye(4, dtype=np.float32)
+        candidates = []
+        if channel_name is not None and str(channel_name) in channels:
+            candidates.append(channels[str(channel_name)])
+        if channel_index is not None:
+            candidates += [ch for ch in channels.values() if isinstance(ch, Mapping)
+                           and int(ch.get("channel_index", -1)) == int(channel_index)]
+        if wavelength_um is not None:
+            candidates += [ch for ch in channels.values() if isinstance(ch, Mapping)
+                           and ch.get("wavelength_um") is not None
+                           and np.isclose(float(ch["wavelength_um"]), float(wavelength_um))]
+        for ch in candidates:
+            if ch.get("affine_zyx_um") is not None:
+                return np.asarray(ch["affine_zyx_um"], dtype=np.float32)
+        return np.eye(4, dtype=np.float32)
 
     # ---------------------------------------------------------- vectors
     def save_normalization_vectors(self, norm, bg, run_key: str) -> None:

@@ -37,10 +37,15 @@ def component_stats_host(
     distance: np.ndarray,
     magnitude: np.ndarray,
     scaled,  # (bits, Z, Y, X) array OR callable lin -> (bits, n_fg)
+    *,
+    collect_weighted_centroids: bool = False,
 ) -> dict:
     """Regionprops over the assigned voxels only (numpy bincount): area,
-    centroid, codeword, min distance, mean magnitude, per-bit means and
-    central second moments per component."""
+    centroid, codeword, min distance, mean magnitude, per-bit sums and
+    means and central second moments per component; with
+    ``collect_weighted_centroids`` also ``bit_w_coord_sums`` (bits, n, 3),
+    each bit's intensity-weighted z, y, x sums (the chromatic estimator's
+    per-bit centroids)."""
     shape = decoded.shape
     ny, nx = shape[1], shape[2]
     if isinstance(labels, tuple):
@@ -62,6 +67,7 @@ def component_stats_host(
             "magnitude_mean": empty,
             "bit_means": np.zeros((bits, 0), np.float32),
             "bit_sums": np.zeros((bits, 0), np.float32),
+            "bit_w_coord_sums": np.zeros((bits, 0, 3), np.float32),
             "moments": np.zeros((0, 6), np.float32),
         }
     roots = roots_fg if roots_fg is not None else flat_labels[lin]
@@ -104,7 +110,7 @@ def component_stats_host(
     m_zx = wsum(z * x) / safe - cz * cx
     m_yx = wsum(y * x) / safe - cy * cx
 
-    return {
+    out = {
         "valid": np.ones(n, bool),
         "area": area.astype(np.float32),
         "centroid_zyx": np.stack([cz, cy, cx], axis=1).astype(np.float32),
@@ -117,6 +123,11 @@ def component_stats_host(
             np.float32
         ),
     }
+    if collect_weighted_centroids:
+        out["bit_w_coord_sums"] = np.stack(
+            [np.stack([wsum(bit_fg[b] * c) for c in (z, y, x)], axis=-1) for b in range(bits)]
+        ).astype(np.float32)
+    return out
 
 
 def inertia_tensor_eigvals(moments: np.ndarray, area: np.ndarray) -> np.ndarray:

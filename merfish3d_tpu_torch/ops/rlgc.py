@@ -355,20 +355,23 @@ def rlgc(
     device=None,
     out: str = "host",
     split_fn: Optional[SplitFn] = None,
+    return_iters: bool = False,
 ):
     """RLGC-deconvolve one 3D volume; float32 of the input shape, host
     numpy (``out="host"``) or a tensor on the device (``"device"``).
     ``device`` defaults to a tensor's own, and to ``cuda`` for a host
     array. ``split_fn(observed, seed, iteration)`` replaces the binomial
-    split (a test injects the reference's splits through it)."""
+    split (a test injects the reference's splits through it).
+    ``return_iters`` also returns the solve's iteration count."""
     img = as_device_tensor(image, device).to(torch.float32)
     psf = _as_psf(psf)
     pad_width = linear_fft_pad_width(tuple(img.shape), psf.shape, pad_yx=pad_yx)
-    recon, _ = _rlgc_core(
+    recon, iters = _rlgc_core(
         pad_symmetric(img, pad_width), psf, seed, pad_width=pad_width, safe_mode=safe_mode,
         limit=limit, max_delta=max_delta, max_iters=max_iters, split_fn=split_fn,
     )
-    return _result(remove_padding_zyx(recon, pad_width).contiguous(), out)
+    result = _result(remove_padding_zyx(recon, pad_width).contiguous(), out)
+    return (result, iters) if return_iters else result
 
 
 def rlgc_batch(

@@ -2,7 +2,10 @@
 ``merfish3d_tpu/pipeline/decoder.py``): codebook and caller thresholds,
 normalization seeding, the normalization-by-decoding loop, the final
 lowpass + decode, component extraction and the blank-fraction filter,
-over an :class:`ArrayStore`.
+over an :class:`ArrayStore`; with ``estimate_chromatic_affines`` the
+normalization loop also estimates the chromatic affines from the decoded
+transcripts after each pass (:mod:`.chromatic`), and the next pass
+decodes a stack warped with them.
 
 Device work runs on the decoder's ``device``. On CUDA, the optimization
 passes decode through kernel K3 (after the plain lowpass) and the final
@@ -10,8 +13,8 @@ decode through the fused kernels K1+K2 — the split the reference makes
 on TPU. On CPU the same calls take the kernels' plain versions.
 
 Not ported: the mesh fan-out, multi-tile duplicate removal, the
-LR filter, 2D mode, masks, z ranges, chromatic estimation and on-disk
-resume of the optimization loop.
+LR filter, 2D mode, masks, z ranges and on-disk resume of the
+optimization loop.
 """
 
 from __future__ import annotations
@@ -30,6 +33,11 @@ from ..ops.decode import caller_thresholds, decode_volume
 from ..ops.filters import gaussian_lowpass
 from ..ops.fused_decode import fused_decode_volume, gather_values
 from . import decode_warping
+from .chromatic import (
+    ChromaticAffineEstimationConfig,
+    estimate_chromatic_affines_from_barcodes,
+    save_identity_chromatic_affines,
+)
 from .filtering import concat_tables, filter_blank_fraction, is_blank, select_rows, table_len
 from .handoff import product_f32
 
@@ -114,6 +122,8 @@ class PixelDecoder:
         magnitude_threshold: tuple[float, float] = (1.5, 10.0),
         minimum_pixels: int = 16,
         maximum_pixels: int = 500,
+        estimate_chromatic_affines: bool = False,
+        chromatic_affine_config: ChromaticAffineEstimationConfig = ChromaticAffineEstimationConfig(),
     ):
         self._store = store
         self._device = torch.device(device)
@@ -121,6 +131,9 @@ class PixelDecoder:
         self._minimum_pixels = float(minimum_pixels)
         self._maximum_pixels = float(maximum_pixels)
         self._n_merfish_bits = int(merfish_bits or store.num_bits)
+        self._estimate_chromatic = bool(estimate_chromatic_affines)
+        self._chromatic_affine_config = chromatic_affine_config
+        self._collect_chromatic_centroids = False
         self._load_codebook()
         self._global_normalization_vector: Optional[np.ndarray] = None
         self._global_background_vector: Optional[np.ndarray] = None
@@ -128,8 +141,10 @@ class PixelDecoder:
         self._iterative_background_vector: Optional[np.ndarray] = None
         self._barcodes_loaded: dict = {}
         # one-deep device memo: seeding, every optimization pass and the
-        # final decode of a tile reuse one warped product stack
-        self._warped_memo: Optional[tuple[int, torch.Tensor]] = None
+        # final decode of a tile reuse one warped product stack, keyed by
+        # (tile, the store's chromatic version): every calibration save
+        # makes the warped stack stale
+        self._warped_memo: Optional[tuple[tuple[int, int], torch.Tensor]] = None
 
     # ------------------------------------------------------------- codebook
     def _load_codebook(self) -> None:
@@ -159,7 +174,8 @@ class PixelDecoder:
     def _load_warped_bit_stack(self, tile_idx: int) -> torch.Tensor:
         """decon × probability of every bit, in the round-1 frame, as one
         (bits, z, y, x) float32 stack on the device (u16 and u8 upload)."""
-        if self._warped_memo is not None and self._warped_memo[0] == tile_idx:
+        key = (tile_idx, self._store.chromatic_version)
+        if self._warped_memo is not None and self._warped_memo[0] == key:
             return self._warped_memo[1]
         self._warped_memo = None
         du, pu = self._store.registered_stack(tile_idx)
@@ -171,7 +187,7 @@ class PixelDecoder:
         warped = decode_warping.warp_bit_images_to_reference(
             stack, store=self._store, tile=tile_idx, bits=range(nb)
         )
-        self._warped_memo = (tile_idx, warped)
+        self._warped_memo = (key, warped)
         return warped
 
     def _global_xforms_snapshot(self, tile_idx: int) -> dict:
@@ -329,6 +345,7 @@ class PixelDecoder:
             np.asarray(distance, np.float32),
             np.asarray(magnitude, np.float32),
             intensity,
+            collect_weighted_centroids=self._collect_chromatic_centroids,
         )
         area = stats["area"]
         keep = (area >= self._minimum_pixels) & (area <= self._maximum_pixels)
@@ -357,6 +374,10 @@ class PixelDecoder:
             cols[f"on_bit_{i + 1}"] = on_sel[:, i]
         for b in range(self._n_merfish_bits):
             cols[f"bit{b + 1:02d}_mean_intensity"] = bm[:, b]
+        if self._collect_chromatic_centroids:
+            cols.update(self._on_bit_centroid_columns(
+                stats["bit_w_coord_sums"][:, keep], stats["bit_sums"][:, keep], on_sel
+            ))
         cols["tile_z"] = np.round(z, 0).astype(np.int64)
         cols["tile_y"] = np.round(y, 0).astype(np.int64)
         cols["tile_x"] = np.round(x, 0).astype(np.int64)
@@ -371,6 +392,30 @@ class PixelDecoder:
         cols["bkd_mean"] = bkd_mean
         cols["s-b_mean"] = signal_mean - bkd_mean
         return select_rows(cols, cols["distance_min"] <= self._transcript_distance_threshold)
+
+    def _on_bit_centroid_columns(self, w_coord_sums, bit_sums, on_sel) -> dict:
+        """Sparse per-on-bit intensity-weighted centroid columns
+        ``bitNN_center_z/y/x`` (px) and ``bitNN_intensity_sum``: NaN except
+        at a transcript's on-bits whose intensity sum exceeds the config's
+        epsilon."""
+        n_rows = on_sel.shape[0]
+        nb = self._n_merfish_bits
+        eps = self._chromatic_affine_config.centroid_weight_epsilon
+        centers = np.full((nb, n_rows, 3), np.nan)
+        wsums = np.full((nb, n_rows), np.nan)
+        rows = np.arange(n_rows)
+        for col in range(on_sel.shape[1]):
+            bits0 = on_sel[:, col].astype(np.intp) - 1
+            w = bit_sums[bits0, rows]
+            ok = w > eps
+            centers[bits0[ok], rows[ok]] = w_coord_sums[bits0[ok], rows[ok]] / w[ok, None]
+            wsums[bits0[ok], rows[ok]] = w[ok]
+        cols = {}
+        for b in range(nb):
+            for i, axis in enumerate("zyx"):
+                cols[f"bit{b + 1:02d}_center_{axis}"] = centers[b, :, i]
+            cols[f"bit{b + 1:02d}_intensity_sum"] = wsums[b]
+        return cols
 
     @staticmethod
     def _warp_pixels(pts: np.ndarray, state: dict) -> np.ndarray:
@@ -404,7 +449,9 @@ class PixelDecoder:
     ) -> None:
         """Seed the global vectors, then alternate decoding the sampled
         tiles and re-estimating the vectors from the decoded transcripts.
-        Each iteration's tables are kept in the store's checkpoints."""
+        Each iteration's tables are kept in the store's checkpoints. With
+        chromatic estimation, the calibration starts at identity and is
+        re-estimated from each pass's transcripts before the vectors."""
         store = self._store
         if minimum_pixels is not None:
             self._minimum_pixels = float(minimum_pixels)
@@ -414,6 +461,9 @@ class PixelDecoder:
             if n_tiles > n_random_tiles
             else list(range(n_tiles))
         )
+        if self._estimate_chromatic:
+            save_identity_chromatic_affines(store, self._n_merfish_bits)
+            self._collect_chromatic_centroids = True
         self._global_normalization_vectors(
             tile_indices=sample_idx[:5], lowpass_sigma=lowpass_sigma
         )
@@ -426,7 +476,13 @@ class PixelDecoder:
             ]
             store.iteration_checkpoints[it] = frames
             self._barcodes_loaded = concat_tables(frames)
+            if self._estimate_chromatic and table_len(self._barcodes_loaded):
+                estimate_chromatic_affines_from_barcodes(
+                    store, self._barcodes_loaded, n_merfish_bits=self._n_merfish_bits,
+                    config=self._chromatic_affine_config,
+                )
             self._iterative_normalization_vectors()
+        self._collect_chromatic_centroids = False
 
     # -------------------------------------------------------- full pipeline
     def decode_all_tiles(

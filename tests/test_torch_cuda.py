@@ -631,3 +631,25 @@ def test_predictor_batch_on_card_matches_plain(cuda, monkeypatch):
     assert (got != want).float().mean().item() <= 0.01
     cpu = ufish.UFishPredictor(params=variables, device="cpu").predict(planes)
     np.testing.assert_allclose(got.cpu().numpy(), cpu, rtol=0, atol=2.0**-7)
+
+
+@pytest.mark.parametrize("kind", ["translate", "diagonal", "general"])
+def test_warp_classes_match_cpu(cuda, kind):
+    """The affine warps (plain torch) give the CPU port's result on the
+    card, within 1e-5 · max, past x = 512 and across every face."""
+    from merfish3d_tpu_torch.ops import warp
+
+    rng = np.random.default_rng(7)
+    image = torch.as_tensor((rng.random((6, 40, 560)) * 1000).astype(np.float32))
+    t = np.eye(4)
+    t[:3, 3] = (0.41, -0.73, 1.9)
+    if kind != "translate":
+        t[1, 1], t[2, 2] = 0.9982, 0.998
+    if kind == "general":
+        t[1, 2], t[2, 1] = 0.0021, -0.0017
+    spacing = (0.315, 0.098, 0.098)
+    assert warp._warp_class(warp.transform_to_pixel(t, spacing)[0]) == kind
+    kw = dict(transform_zyx_um=t, spacing_zyx_um=spacing, reference_shape=tuple(image.shape))
+    got = warp.warp_affine(image.to(cuda), **kw)
+    assert got.device.type == "cuda"
+    torch.testing.assert_close(got.cpu(), warp.warp_affine(image, **kw), rtol=0, atol=1e-5 * 1000)

@@ -314,6 +314,9 @@ def test_port_sources_stand_alone():
     imports = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|merfish3d_tpu)\b", re.M)
     paths = re.compile(r"""["'/]merfish3d_tpu["'/]|"merfish3d_tpu"|\bmerfish3d_tpu\.(?!\w*torch)""")
     assert len(files) > 20
+    scanned = {f.relative_to(root).as_posix() for f in files}
+    assert {"merfish3d_tpu_torch/pipeline/chromatic.py",
+            "merfish3d_tpu_torch/utils/chromatic_calibration.py"} <= scanned
     for f in files:
         text = f.read_text()
         assert not imports.search(text), f"{f.name} imports JAX or the JAX package"

@@ -129,11 +129,46 @@ def test_reference_round_transforms_are_translations_the_port_applies(ref):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * images.max())
 
 
-def test_decode_warp_refuses_general_affine(ref):
+def test_decode_warp_refuses_general_affine(ref, tmp_path):
+    """A round transform with a rotation-like off-diagonal term, beside a
+    stored chromatic calibration, is no longer refused: the port's decode
+    warp applies it as the reference's ``warp_bit_images_to_reference``
+    does (general class for that round's bits, diagonal for the bits
+    behind the chromatic affine). A stored flow field is what it still
+    refuses. Tolerance 1e-5 · max on the registered images: the general
+    class's float32 coordinate sums may round one unit in the last place
+    apart from XLA's contracted ones."""
+    import shutil
+
+    from merfish3d_tpu.datastore import qi2labDataStore
+    from merfish3d_tpu.pipeline import decode_warping as jwarp
+
+    shutil.copytree(ref["workdir"] / "qi2labdatastore", tmp_path / "qi2labdatastore")
+    ds = qi2labDataStore(tmp_path / "qi2labdatastore", validate=False)
     store = port_store_from_reference(ref)
     rot = np.eye(4)
     rot[1, 2] = 0.01
+    chromatic = np.eye(4)
+    chromatic[1, 1] = chromatic[2, 2] = 0.9982
+    chromatic[:3, 3] = (0.18, 0.42, -0.31)
+    calibration = {"0.67": chromatic}
+    ds.save_local_round_transform_zyx_um(rot, tile=0, round=3)
+    ds.save_chromatic_affine_transforms_zyx_um(calibration)
     store.round_transforms[(0, 3)] = rot
+    store.save_chromatic_affine_transforms_zyx_um(calibration)
+    images = ref["registered"].astype(np.float32)
+    want = jwarp.warp_bit_images_to_reference(
+        images, datastore=ds, tile=0, bit_ids=ds.bit_ids,
+        emission_wavelengths_um=ref["bit_wavelengths_um"][:, 1],
+    )
+    got = decode_warping.warp_bit_images_to_reference(
+        torch.as_tensor(images), store=store, tile=0, bits=range(images.shape[0])
+    ).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * images.max())
+    assert not np.array_equal(got[6], images[6])  # round 3's first bit moved
+    one = decode_warping.warp_bit_image_to_reference(torch.as_tensor(images[7]), store=store, tile=0, bit=7)
+    np.testing.assert_array_equal(one.numpy(), got[7])
+    store.flow_fields[(0, 3)] = (np.zeros((3, 2, 2, 2), np.float32), {})
     with pytest.raises(NotImplementedError):
         decode_warping.warp_bit_images_to_reference(
             torch.zeros((16, 2, 4, 4)), store=store, tile=0, bits=range(16)
