@@ -72,12 +72,30 @@ Run from the root of a checkout. Phases, each raising on failure:
    each translation within 0.08 um and linear part within 0.005 of the
    known one, RLGC iterations and walls; then the 0.67 um channel warped
    onto the reference grid with its calibration (the general class), its
-   bead centroids within 0.3 px of the reference channel's.
+   bead centroids within 0.3 px of the reference channel's;
+10. the production tile with the chromatic injection and the production
+   case's smooth deformation (1.2 px; rendered in a second worker process
+   during the build and phase 2) through registration with RLGC on the
+   readout bits (10 iterations) and deformable flow (the default
+   ``SofimaRegistrationConfig``: a (2, 63, 63) lattice of (10, 32, 32)
+   patches a round) and ``decode_pixels(estimate_chromatic_affines=True)``:
+   every round's flow status ``ok`` (seconds and valid vectors printed),
+   the registration wall beside phase 5's, the round-shift residual
+   (reported), ``affine_estimated`` within 0.12 um, F1 >= 0.5 beside phase
+   8's, the decode wall with its flow warps' share, peak device memory;
+   each moving round's bead landing on round 0, affine alone and affine +
+   flow (median and 95th percentile; the median with flow must be the
+   smaller); round 1's flow field on the card against the CPU port (first
+   pass's validity split only at a gate's margin, fields within 0.01 px at
+   sites valid in both) and its two bits' flow batch warp (within 1e-5 ·
+   max).
 
 The launch counts of the eleven kernels are zeroed before phase 4 and read
 after phase 6: every kernel must have run on the main path. They are
 zeroed again before phase 8 and read after phase 9: K1, K2, K3, K4, K5 and
-the DFT kernels of the bead solves must have run on the chromatic path.
+the DFT kernels of the bead solves must have run on the chromatic path;
+and before phase 10 and read after its registration and decode: K1, K2,
+K3, K4, K5, K7, K9 and K10 must have run on the deformed path.
 Then one
 production bit is solved twice more, through the kernels and through
 their plain versions, from the same generator seed, and so is one camera
@@ -860,13 +878,15 @@ def check_conv_kernel(raw, workdir: Path) -> tuple[dict, list[dict]]:
     return row, shapes
 
 
-def production_raw(chromatic: bool = False, shape=(16, 1024, 1024), n_spots: int = 2400):
+def production_raw(chromatic: bool = False, shape=(16, 1024, 1024), n_spots: int = 2400,
+                   deformation_px: float = 0.0):
     """The production tile's raw data (numpy generator, seed 21): one
     (16, 1024, 1024) tile x 16 bits, 2400 spots, 80 genes + 10 blanks, 8
     fiducial rounds rigidly shifted by up to 2 px
     (``merfish3d_tpu/utils/production_case.py``); with ``chromatic``, the
     second emission channel rendered through the production injection
-    affine (``make_injection_affine``) at the emitter."""
+    affine (``make_injection_affine``) at the emitter; every moving round
+    smoothly deformed by up to ``deformation_px`` px."""
     from merfish3d_tpu_torch.cli.simulation.convert_simulation_to_experiment import (
         generate_raw_experiment,
     )
@@ -876,7 +896,7 @@ def production_raw(chromatic: bool = False, shape=(16, 1024, 1024), n_spots: int
         shape=shape, n_spots=n_spots, n_genes=80, n_blanks=10, seed=21,
         voxel_size_zyx_um=(0.315, 0.098, 0.098), distribution="cells", n_cells=12,
         axial_sigma_um=0.44, tile_offset_px=(0.0, 0.0, 1024.0 - 205.0), round_shift_px=2.0,
-        chromatic_affine_zyx_um=make_injection_affine() if chromatic else None,
+        deformation_px=deformation_px, chromatic_affine_zyx_um=make_injection_affine() if chromatic else None,
     )
 
 
@@ -1443,6 +1463,13 @@ def chromatic_inputs():
     return production_raw(chromatic=True), bead_channels()
 
 
+def deformed_inputs():
+    """Phase 10's input, rendered with numpy in a second worker process
+    during the build and phase 2: the chromatic production tile with the
+    production case's smooth deformation."""
+    return production_raw(chromatic=True, deformation_px=DEFORMATION_PX)
+
+
 def sync(device) -> None:
     import torch
 
@@ -1479,23 +1506,25 @@ def warp_classes_case(raw) -> dict:
     return out
 
 
-def chromatic_production_case(raw, device="cuda", minimum_pixels: int = 28) -> dict:
-    """Phase 8: the production tile rendered with the injected chromatic
-    aberration, through fiducial registration (DoG, no decon) and
+def chromatic_production_case(raw, device="cuda", minimum_pixels: int = 28, **registration) -> dict:
+    """Phases 8 and 10: the production tile rendered with the injected
+    chromatic aberration, through registration (DoG, no decon unless
+    ``registration`` asks otherwise) and
     ``decode_pixels(estimate_chromatic_affines=True)`` with 3 iterations;
-    the decode stage's wall, the synchronized walls of its warps, its
-    estimates and its region statistics, the recovered affine and F1."""
+    the registration wall and the synchronized wall of each flow estimate,
+    the decode stage's wall, the synchronized walls of its warps (and of
+    their flow batches), its estimates and its region statistics, the
+    recovered affine and F1."""
     from merfish3d_tpu_torch.cli.simulation.calculate_f1 import match_spots_f1
     from merfish3d_tpu_torch.cli.simulation.convert_to_datastore import convert_data
     from merfish3d_tpu_torch.cli.simulation.pixeldecode import decode_pixels
     from merfish3d_tpu_torch.pipeline import decode_warping
     from merfish3d_tpu_torch.pipeline import decoder as decoder_module
+    from merfish3d_tpu_torch.pipeline import registration as registration_module
     from merfish3d_tpu_torch.pipeline.registration import DataRegistration
 
     store = convert_data(raw, device=device)
-    DataRegistration(store, device=device, decon_fiducial=False, decon_readout=False,
-                     ufish_model="dog").register_all_tiles()
-    walls = {"warp": [], "estimate": [], "extract": []}
+    walls = {"warp": [], "flow_warp": [], "estimate": [], "extract": [], "flow": []}
 
     def timed(module, name, key):
         inner = getattr(module, name)
@@ -1508,14 +1537,27 @@ def chromatic_production_case(raw, device="cuda", minimum_pixels: int = 28) -> d
             walls[key].append(time.perf_counter() - t0)
             return result
         setattr(module, name, run)
-        return inner
+        return module, name, inner
 
-    originals = [(decode_warping, "warp_bit_images_to_reference",
-                  timed(decode_warping, "warp_bit_images_to_reference", "warp")),
-                 (decoder_module, "estimate_chromatic_affines_from_barcodes",
-                  timed(decoder_module, "estimate_chromatic_affines_from_barcodes", "estimate")),
-                 (decoder_module, "component_stats_host",
-                  timed(decoder_module, "component_stats_host", "extract"))]
+    def restore(originals):
+        for module, name, inner in originals:
+            setattr(module, name, inner)
+
+    options = dict(decon_fiducial=False, decon_readout=False, ufish_model="dog")
+    options.update(registration)
+    originals = [timed(registration_module, "estimate_sofima_flow_field_xyz_px", "flow")]
+    try:
+        sync(device)
+        t0 = time.perf_counter()
+        DataRegistration(store, device=device, **options).register_all_tiles()
+        sync(device)
+        register_s = time.perf_counter() - t0
+    finally:
+        restore(originals)
+    originals = [timed(decode_warping, "warp_bit_images_to_reference", "warp"),
+                 timed(decode_warping, "warp_affine_plus_flow_batch_device", "flow_warp"),
+                 timed(decoder_module, "estimate_chromatic_affines_from_barcodes", "estimate"),
+                 timed(decoder_module, "component_stats_host", "extract")]
     try:
         sync(device)
         t0 = time.perf_counter()
@@ -1525,13 +1567,14 @@ def chromatic_production_case(raw, device="cuda", minimum_pixels: int = 28) -> d
         sync(device)
         decode_s = time.perf_counter() - t0
     finally:
-        for module, name, inner in originals:
-            setattr(module, name, inner)
+        restore(originals)
     (channel,) = [c for c in store.load_chromatic_affine_transforms_zyx_um()["channels"].values()
                   if not c["reference_channel"]]
     affine = np.asarray(channel["affine_zyx_um"])
     return {
         "store": store,
+        "register_s": register_s,
+        "flow_s": walls["flow"],
         "status": channel["status"],
         "affine_zyx_um": affine.round(5).tolist(),
         "translation_error_um": np.abs(affine[:3, 3] - np.asarray(INJECTED_TRANSLATION_UM)).round(4).tolist(),
@@ -1539,9 +1582,11 @@ def chromatic_production_case(raw, device="cuda", minimum_pixels: int = 28) -> d
         "used_pairs": channel["diagnostics"].get("path_fits", [{}])[0].get("fit", {}).get("used_pairs"),
         "decode_s": decode_s,
         "warp_s": walls["warp"],
+        "flow_warp_s": walls["flow_warp"],
         "estimate_s": walls["estimate"],
         "extract_s": walls["extract"],
         "warp_share": sum(walls["warp"]) / decode_s,
+        "flow_warp_share": sum(walls["flow_warp"]) / decode_s,
         "estimate_share": sum(walls["estimate"]) / decode_s,
         "extract_share": sum(walls["extract"]) / decode_s,
         "f1": match_spots_f1(table, raw.ground_truth, radius_um=1.0),
@@ -1635,6 +1680,106 @@ def bead_centroids(vol: np.ndarray, centers_px: np.ndarray, half=(3, 5, 5)) -> n
     return out
 
 
+# ------------------------------------------------------------ phase 10: deformable flow
+DEFORMATION_PX = 1.2  # merfish3d_tpu/utils/production_case.py's deformation_px
+LATTICE_SITES = 2 * 63 * 63  # the default SofimaRegistrationConfig on (16, 1024, 1024)
+REFERENCE_DEFORMED_RESIDUAL_PX = 0.30  # PARITY.md's two-tile deformed case (reported, not gated)
+FLOW_CPU_TOL_PX = 0.01  # the card's flow vs the CPU port's at sites valid in both
+FLOW_GATE_RTOL = 1e-4  # a validity decision may split only this close to its gate
+
+
+def bead_landing_case(store, raw, device="cuda") -> dict:
+    """Each moving round's fiducial warped onto round 0 by its affine alone
+    and by its affine and flow field, its beads' centroids measured in the
+    same (7, 11, 11) windows as round 0's (``bead_centroids``, at round
+    0's detected beads clear of the border): the median and 95th
+    percentile of max |delta| over the axes, in px."""
+    import torch
+
+    from merfish3d_tpu_torch.ops import warp
+    from merfish3d_tpu_torch.utils import chromatic_calibration as cal
+
+    spacing = np.asarray(raw.voxel_size_zyx_um)
+    reference = torch.as_tensor(raw.fiducial[0, 0], device=device).to(torch.float32)
+    shape = np.asarray(reference.shape)
+    windows = np.round(cal.detect_beads(reference)).astype(int)
+    inside = np.all((windows >= (3, 8, 8)) & (windows < shape - (3, 8, 8)), axis=1)
+    windows = windows[inside]
+    want = bead_centroids(reference.cpu().numpy(), windows)
+    out = {"beads": int(len(windows)), "rounds": {}}
+    for r in range(1, raw.fiducial.shape[1]):
+        moving = torch.as_tensor(raw.fiducial[0, r], device=device).to(torch.float32)
+        transform = store.round_transforms[(0, r)]
+        field, attrs = store.flow_fields[(0, r)]
+        warped = {
+            "affine": warp.warp_affine(moving, transform_zyx_um=transform, spacing_zyx_um=spacing,
+                                       reference_shape=tuple(moving.shape)),
+            "flow": warp.warp_affine_plus_flow(moving, field, transform_zyx_um=transform, spacing_zyx_um=spacing,
+                                               reference_shape=tuple(moving.shape),
+                                               map_stride_zyx_px=attrs["map_stride_zyx_px"],
+                                               map_box_start_xyz_px=attrs["map_box_start_xyz_px"]),
+        }
+        row = {}
+        for name, vol in warped.items():
+            landing = np.abs(bead_centroids(vol.cpu().numpy(), windows) - want).max(axis=1)
+            row[name] = {"median_px": float(np.median(landing)), "p95_px": float(np.percentile(landing, 95))}
+        out["rounds"][r] = row
+    return out
+
+
+def flow_card_vs_cpu(store, round_idx: int, card="cuda") -> dict:
+    """One moving round's flow field on the card and through the CPU port
+    on the same u16 inputs (round 0's fiducial, the round's registered
+    fiducial): the first pass's statistics and validity, the fields at
+    the sites valid in both; then the flow batch warp of the round's two
+    bits (their composed transforms), card against CPU port."""
+    import torch
+
+    from merfish3d_tpu_torch.ops import flow, warp
+    from merfish3d_tpu_torch.pipeline import decode_warping
+
+    cfg = flow.SofimaRegistrationConfig()
+    inputs = (store.fiducial_corrected[(0, 0)], store.fiducial_registered[(0, round_idx)])
+    patch, stride = cfg.resolve_patch_and_stride(inputs[0].shape)
+    out, passes, fields = {}, {}, {}
+    for device in (card, "cpu"):
+        ref, moving = (torch.as_tensor(v, device=device).to(torch.float32) for v in inputs)
+        sync(device)
+        t0 = time.perf_counter()
+        fields[device] = flow.estimate_sofima_flow_field_xyz_px(ref, moving, cfg)
+        sync(device)
+        out["card_s" if device == card else "cpu_s"] = time.perf_counter() - t0
+        passes[device] = flow._patch_xcorr_flow(ref, moving, patch_size=patch, strides=stride)
+    (cf, cr, cs), (hf, hr, hs) = passes[card], passes["cpu"]
+    card_ok = flow._clean_flow(cf, cr, cs, cfg)
+    cpu_ok = flow._clean_flow(hf, hr, hs, cfg)
+    near = (np.abs(hr - cfg.min_peak_ratio) <= FLOW_GATE_RTOL * cfg.min_peak_ratio) | (
+        np.abs(hs - cfg.min_peak_sharpness) <= FLOW_GATE_RTOL * cfg.min_peak_sharpness)
+    both = card_ok & cpu_ok
+    out.update({
+        "valid_card": int(card_ok.sum()), "valid_cpu": int(cpu_ok.sum()),
+        "split_sites": int((card_ok != cpu_ok).sum()),
+        "split_away_from_gate": int(((card_ok != cpu_ok) & ~near).sum()),
+        "ratio_max_rel": float(np.max(np.abs(cr - hr) / np.maximum(np.abs(hr), 1e-12))),
+        "sharpness_max_rel": float(np.max(np.abs(cs - hs) / np.maximum(np.abs(hs), 1e-12))),
+        "first_pass_max_px": float(np.abs(cf - hf)[both].max()),
+        "field_max_px": float(np.abs(fields[card][0] - fields["cpu"][0])[:, both].max()),
+        "meta_equal": fields[card][1] == fields["cpu"][1],
+    })
+    bits = [b for b in range(store.num_bits) if int(store.round_of_bit[b]) == round_idx]
+    transforms = np.stack([decode_warping.bit_transform_zyx_um(store, 0, b) for b in bits])
+    field, attrs = store.flow_fields[(0, round_idx)]
+    args = (np.stack([field] * len(bits)), transforms, store.voxel_size_zyx_um,
+            np.stack([attrs["map_stride_zyx_px"]] * len(bits)), np.stack([attrs["map_box_start_xyz_px"]] * len(bits)))
+    images = np.stack([store.registered[(0, b)] for b in bits]).astype(np.float32)
+    on_card = warp.warp_affine_plus_flow_batch_device(torch.as_tensor(images, device=card), *args).cpu()
+    host = warp.warp_affine_plus_flow_batch_device(torch.as_tensor(images), *args)
+    out["warp_bits"] = bits
+    out["warp_separable"] = warp._flow_batch_plan(args[1], args[2], args[0], images.shape[1:])[2] is not None
+    out["warp_max_rel_err"] = float((on_card - host).abs().max() / host.abs().max())
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if importlib.util.find_spec("torch") is None:
@@ -1649,9 +1794,9 @@ def main() -> int:
         print("run chip_smoke.py from the root of a merfish3d-tpu checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    # one worker renders the chromatic phases' inputs with numpy during the
-    # build and phase 2
-    pool = ProcessPoolExecutor(max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+    # two workers render the chromatic and deformed phases' inputs with
+    # numpy during the build and phase 2
+    pool = ProcessPoolExecutor(max_workers=2, mp_context=multiprocessing.get_context("spawn"))
     try:
         return smoke(pool, t_start)
     finally:
@@ -1721,6 +1866,7 @@ def smoke(pool, t_start: float) -> int:
     # -- 2. build; the chromatic inputs render meanwhile, so that the worker
     # competes with the build and the generators, not with the timed phases
     chromatic_future = pool.submit(chromatic_inputs)
+    deformed_future = pool.submit(deformed_inputs)
     t_submit = time.perf_counter()
     t0 = time.perf_counter()
     _build.kernels()
@@ -1915,6 +2061,74 @@ def smoke(pool, t_start: float) -> int:
                                                         "dft_leading (K8)")) > 0),
             "a kernel of the chromatic path never launched")
 
+    # -- 10. the deformed production tile, counting launches
+    t0 = time.perf_counter()
+    raw_def = deformed_future.result()
+    log(f"deformed input (numpy, a worker process, {time.perf_counter() - t_submit:.1f} s since submitted): "
+        f"waited {time.perf_counter() - t0:.1f} s")
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    deformed = chromatic_production_case(raw_def, decon_readout=True, decon_max_iters=PRODUCTION_DECON_ITERS,
+                                         deformable_registration=True)
+    deformed_launches = launch_counts()
+    deformed["peak_device_bytes"] = int(torch.cuda.max_memory_allocated())
+    def_store = deformed.pop("store")
+    torch.cuda.empty_cache()
+    residual = round_shift_residual_px(def_store, raw_def)
+    flows = {r: def_store.flow_fields[(0, r)][1] for r in range(1, raw_def.fiducial.shape[1])}
+    log(f"deformed production tile (deformation {DEFORMATION_PX} px, round shifts up to 2 px, the chromatic "
+        f"injection; registration with RLGC on the readout bits ({PRODUCTION_DECON_ITERS} iterations) and "
+        f"deformable flow (default SofimaRegistrationConfig); decode with the chromatic estimate, 3 iterations) "
+        f"on {card}:")
+    for (r, attrs), secs in zip(flows.items(), deformed["flow_s"]):
+        log(f"  round {r}: flow {secs:.3f} s, status {attrs['sofima_status']}, valid vectors "
+            f"{attrs['valid_flow_vectors']} / {LATTICE_SITES}")
+    log(f"  register_all_tiles {deformed['register_s']:.3f} s, of which the flows {sum(deformed['flow_s']):.3f} s "
+        f"(phase 5 with decon: {productions['decon']['register_s']:.3f} s); round-shift residual max "
+        f"{float(residual.max()):.3f} px (the reference's two-tile deformed case: {REFERENCE_DEFORMED_RESIDUAL_PX} "
+        f"px; not gated: the deformation shares the rigid part)")
+    log(f"  chromatic status {deformed['status']}, |translation error| {deformed['translation_error_um']} um, "
+        f"y/x scale {deformed['yx_scale']}")
+    log(f"  decode stage {deformed['decode_s']:.2f} s, of which the decode warps {sum(deformed['warp_s']):.3f} s "
+        f"({100 * deformed['warp_share']:.2f} %) and their flow batches {sum(deformed['flow_warp_s']):.3f} s "
+        f"({100 * deformed['flow_warp_share']:.2f} %: {[round(v, 4) for v in deformed['flow_warp_s']]} s), the "
+        f"chromatic estimates {sum(deformed['estimate_s']):.3f} s ({100 * deformed['estimate_share']:.2f} %)")
+    log(f"  F1 {deformed['f1']['f1']:.4f} (tp {deformed['f1']['true_positives']} fp "
+        f"{deformed['f1']['false_positives']} fn {deformed['f1']['false_negatives']}); chromatic tile without "
+        f"deformation (phase 8) {chrom['f1']['f1']:.4f}; peak device memory "
+        f"{deformed['peak_device_bytes'] / 2**30:.2f} GiB")
+    log(f"launch counts on the deformed path: {deformed_launches}")
+    require(all(a["sofima_status"] == "ok" for a in flows.values()), "a round's flow found no valid vector")
+    require(deformed["status"] == "affine_estimated"
+            and max(deformed["translation_error_um"]) <= CHROMATIC_TRANSLATION_TOL_UM,
+            "the chromatic affine was not recovered on the deformed tile")
+    require(deformed["f1"]["f1"] >= 0.5, "deformed production F1 below 0.5")
+    require(all(deformed_launches[k] > 0 for k in (
+        "zy_lowpass_f32 (K1)", "x_lowpass_decode_f32 (K2)", "decode_chunk_f32 (K3)", "ratio_kld_f32 (K4)",
+        "update_select_f32 (K5)", "dft_middle (K7)", "dft_mid_conv (K9)", "dft_zx (K10)")),
+        "a kernel of the deformed path never launched")
+    landing = bead_landing_case(def_store, raw_def)
+    for r, row in landing["rounds"].items():
+        log(f"  round {r} bead landing on round 0 ({landing['beads']} beads, max |delta| over the axes): affine "
+            f"alone median {row['affine']['median_px']:.3f} px, p95 {row['affine']['p95_px']:.3f}; affine + flow "
+            f"median {row['flow']['median_px']:.3f} px, p95 {row['flow']['p95_px']:.3f}")
+    require(all(row["flow"]["median_px"] < row["affine"]["median_px"] for row in landing["rounds"].values()),
+            "the flow did not bring a round's beads closer than its affine alone")
+    versus = flow_card_vs_cpu(def_store, round_idx=1)
+    log(f"  round 1 flow, card {versus['card_s']:.3f} s against the CPU port {versus['cpu_s']:.3f} s: valid "
+        f"{versus['valid_card']} / {versus['valid_cpu']}, split {versus['split_sites']} (away from a gate "
+        f"{versus['split_away_from_gate']}); ratio, sharpness max rel {versus['ratio_max_rel']:.2e}, "
+        f"{versus['sharpness_max_rel']:.2e}; first pass max |delta| {versus['first_pass_max_px']:.2e} px, field "
+        f"{versus['field_max_px']:.2e} px (limit {FLOW_CPU_TOL_PX}); flow batch warp of bits "
+        f"{versus['warp_bits']} ({'separable' if versus['warp_separable'] else 'gather'}) max |err| / max |x| "
+        f"{versus['warp_max_rel_err']:.3e} (limit {WARP_RTOL})")
+    require(versus["split_away_from_gate"] == 0 and versus["meta_equal"]
+            and max(versus["first_pass_max_px"], versus["field_max_px"]) <= FLOW_CPU_TOL_PX,
+            "the card's flow field disagrees with the CPU port's")
+    require(versus["warp_max_rel_err"] <= WARP_RTOL, "the card's flow warp disagrees with the CPU port's")
+    del def_store, raw_def
+    torch.cuda.empty_cache()
+
     # one production bit through the kernels and through the plain versions
     twice = solve_twice(raw)
     log(f"production bit 0 solved twice from seed 7: iterations {twice['iterations_kernels']} "
@@ -1972,7 +2186,11 @@ def smoke(pool, t_start: float) -> int:
                "k11_layers": k11_shapes, "camera_pair": camera, "solve_twice": twice,
                "camera_frame_solve": cam_solve, "camera_frame_tiled": tiled, "dft_times": DFT_TIMES,
                "warp_classes": warps, "chromatic_production": {**chrom, "f1": chrom["f1"]["f1"]},
-               "bead_calibration": bead, "chromatic_launches": chromatic_launches}
+               "bead_calibration": bead, "chromatic_launches": chromatic_launches,
+               "deformed_production": {**deformed, "f1": deformed["f1"]["f1"],
+                                       "round_shift_residual_px": residual.round(4).tolist(),
+                                       "flows": flows, "bead_landing": landing, "card_vs_cpu": versus},
+               "deformed_launches": deformed_launches}
     for key, prod in productions.items():
         summary["production"][key] = {k: v for k, v in prod.items() if k != "f1"}
         summary["production"][key]["f1"] = prod["f1"]["f1"]

@@ -9,12 +9,12 @@ the reference happens here in the same order, including draws whose
 values this slice does not use.
 
 The production renderer applies the reference's rigid per-round shifts
-(``round_shift_px``) and, with ``chromatic_affine_zyx_um``, its
-emitter-side chromatic aberration: the second emission channel's spots
-are placed at the inverse affine of their position, in µm in the tile's
-frame. Not ported: smooth deformation (its registration stage is not
-ported yet); the renderer keeps its random draws, so the output stays
-identical.
+(``round_shift_px``), its smooth per-round deformation of the global
+field (``deformation_px``: sinusoids over the global extent, with phases
+drawn after each round's shift) and, with ``chromatic_affine_zyx_um``,
+its emitter-side chromatic aberration: the second emission channel's
+spots are placed at the inverse affine of their deformed position, in µm
+in the tile's frame.
 """
 
 from __future__ import annotations
@@ -41,6 +41,8 @@ class RawExperiment:
     # production renderer: the injected rigid shift of each round's field
     # (px, round 0 the reference), the reference's GT_misregistration.json
     round_shifts_px_zyx: Optional[np.ndarray] = None  # (rounds, 3)
+    # production renderer: the amplitude of the smooth deformation (px)
+    deformation_px: float = 0.0
     # production renderer: the chromatic affine injected at the emitter
     chromatic_affine_zyx_um: Optional[np.ndarray] = None  # (4, 4)
     # the reference's metadata.json optics
@@ -77,6 +79,7 @@ def generate_raw_experiment(
     axial_sigma_um: float | None = None,
     tile_offset_px=None,
     round_shift_px: float = 0.0,
+    deformation_px: float = 0.0,
     chromatic_affine_zyx_um=None,
 ) -> RawExperiment:
     """Generate a synthetic raw acquisition.
@@ -87,7 +90,8 @@ def generate_raw_experiment(
     ``tile_offset_px`` set selects the production renderer: one global
     field imaged by ``n_tiles`` tiles at stage offsets
     ``tile_offset_px * tile_idx``, each moving round's beads and spots
-    shifted rigidly by up to ``round_shift_px`` px (z scaled by 0.25), and
+    shifted rigidly by up to ``round_shift_px`` px (z scaled by 0.25) and
+    displaced by a smooth field of amplitude ``deformation_px`` px, and
     with ``chromatic_affine_zyx_um`` its odd bits (the second emission
     wavelength) imaged through that chromatic aberration: stored(p) =
     true(A·p), the emitter rendered at A⁻¹ of its position."""
@@ -116,7 +120,8 @@ def generate_raw_experiment(
             n_rounds=n_rounds, n_spots=n_spots, n_tiles=n_tiles, spacing=spacing,
             sigma_zyx=sigma_zyx, tile_offset_px=np.asarray(tile_offset_px, np.float64),
             distribution=distribution, n_cells=n_cells, common=common,
-            round_shift_px=float(round_shift_px), chromatic_affine_zyx_um=chromatic_affine_zyx_um,
+            round_shift_px=float(round_shift_px), deformation_px=float(deformation_px),
+            chromatic_affine_zyx_um=chromatic_affine_zyx_um,
         )
 
     fiducial = np.empty((n_tiles, n_rounds) + tuple(shape), np.uint16)
@@ -183,11 +188,12 @@ def generate_raw_experiment(
 def _production_tiles(
     rng, *, shape, matrix, gene_ids, n_bits, n_rounds, n_spots, n_tiles,
     spacing, sigma_zyx, tile_offset_px, distribution, n_cells, common, round_shift_px,
-    chromatic_affine_zyx_um=None,
+    deformation_px=0.0, chromatic_affine_zyx_um=None,
 ) -> RawExperiment:
     """Production-geometry renderer: one global spot/bead field imaged by
-    overlapping tiles, each moving round rigidly shifted, the second
-    emission channel optionally chromatically aberrated."""
+    overlapping tiles, each moving round rigidly shifted and smoothly
+    deformed, the second emission channel optionally chromatically
+    aberrated."""
     shape = np.asarray(shape, int)
     offsets_px = [tile_offset_px * t for t in range(n_tiles)]
     extent_px = shape.astype(np.float64) + offsets_px[-1]
@@ -230,11 +236,25 @@ def _production_tiles(
     )
     bead_amps = rng.uniform(500, 1500, n_beads)
     # per-moving-round rigid shift (z scaled down: stage drift is mostly
-    # lateral); the deformation phases drawn after it are not used here
+    # lateral) and deformation phases; round 0 is the reference
     shifts = np.zeros((n_rounds, 3))
+    phases = np.zeros((n_rounds, 4))
     for r in range(1, n_rounds):
         shifts[r] = rng.uniform(-1.0, 1.0, 3) * round_shift_px * np.asarray([0.25, 1.0, 1.0])
-        rng.uniform(0, 2 * np.pi, 4)
+        phases[r] = rng.uniform(0, 2 * np.pi, 4)
+
+    def deform(points_global, r):
+        """Smooth low-frequency displacement (px) of global positions in
+        round r's frame."""
+        if r == 0 or deformation_px == 0.0:
+            return np.zeros_like(points_global)
+        z, y, x = points_global.T
+        ly = max(float(extent_px[1]), 1.0)
+        lx = max(float(extent_px[2]), 1.0)
+        dy = deformation_px * np.sin(2 * np.pi * x / lx + phases[r, 0]) * np.cos(2 * np.pi * y / ly + phases[r, 1])
+        dx = deformation_px * np.cos(2 * np.pi * y / ly + phases[r, 2]) * np.sin(2 * np.pi * x / lx + phases[r, 3])
+        dz = 0.25 * deformation_px * np.sin(2 * np.pi * x / lx + phases[r, 0])
+        return np.column_stack([dz, dy, dx])
 
     shape_t = tuple(int(v) for v in shape)
     fiducial = np.empty((n_tiles, n_rounds) + shape_t, np.uint16)
@@ -244,7 +264,7 @@ def _production_tiles(
         offset = offsets_px[tile_idx]
         stage_positions.append(offset * spacing)
         for r in range(n_rounds):
-            local = global_beads + shifts[r] - offset
+            local = global_beads + shifts[r] + deform(global_beads, r) - offset
             inside = np.all((local > -5) & (local < shape.astype(float) + 5), axis=1)
             fid = _render_bit_volume(shape_t, local[inside], bead_amps[inside], sigma_zyx=sigma_zyx)
             fiducial[tile_idx, r] = rng.poisson(fid + 40).astype(np.uint16)
@@ -255,7 +275,7 @@ def _production_tiles(
         )
         for b in range(n_bits):
             on = matrix[genes, b] > 0
-            moved = global_spots[on] + shifts[b // 2]
+            moved = global_spots[on] + shifts[b // 2] + deform(global_spots[on], b // 2)
             if inv_chromatic is not None and b % 2 == 1:
                 # the emitter appears at A⁻¹·q: the affine acts on µm in
                 # this tile's frame, the contract the decoder inverts
@@ -274,6 +294,7 @@ def _production_tiles(
         ground_truth=_gt_columns(gene_ids, genes, global_spots, -1, spacing),
         stage_positions_zyx_um=np.asarray(stage_positions),
         round_shifts_px_zyx=shifts,
+        deformation_px=float(deformation_px),
         chromatic_affine_zyx_um=(
             None if chromatic_affine_zyx_um is None else np.asarray(chromatic_affine_zyx_um, np.float64)
         ),

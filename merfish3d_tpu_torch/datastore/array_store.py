@@ -7,9 +7,13 @@ so it keeps its state in numpy arrays. :meth:`ArrayStore.from_arrays`
 is also how a test hands the reference datastore's exact state to the
 port.
 
-Readout images are keyed by integer ``(tile, bit)``; fiducial images and
-round transforms by ``(tile, round)``; ``round_of_bit`` links each bit to
-its 0-based round. ``channel_psfs`` holds one PSF per channel, the
+Readout images are keyed by integer ``(tile, bit)``; fiducial images,
+round transforms and deformable flow fields by ``(tile, round)``;
+``round_of_bit`` links each bit to its 0-based round. A flow field is
+``(field (3, fz, fy, fx) float32, attrs)`` with the reference's attribute
+names (``map_stride_zyx_px``, ``map_box_start_xyz_px``,
+``map_box_size_xyz_px``, ``reference_shape_zyx_px``,
+``moving_shape_zyx_px``, ``sofima_status``, ``valid_flow_vectors``). ``channel_psfs`` holds one PSF per channel, the
 fiducial channel first and then the readout emission wavelengths in
 order, with the objective's ``na`` and immersion ``ri``; registration
 deconvolves with them.
@@ -51,6 +55,34 @@ def _json_safe(value: Any) -> Any:
     return value
 
 
+class _VersionedDict(dict):
+    """A dict whose ``version`` counts the writes to it."""
+
+    version = 0
+
+    def __setitem__(self, key, value):
+        super().__setitem__(key, value)
+        self.version += 1
+
+    def __delitem__(self, key):
+        super().__delitem__(key)
+        self.version += 1
+
+    def _bump(name):
+        def method(self, *args, **kwargs):
+            out = getattr(dict, name)(self, *args, **kwargs)
+            self.version += 1
+            return out
+        return method
+
+    update = _bump("update")
+    pop = _bump("pop")
+    popitem = _bump("popitem")
+    clear = _bump("clear")
+    setdefault = _bump("setdefault")
+    del _bump
+
+
 class ArrayStore:
     def __init__(
         self,
@@ -85,8 +117,9 @@ class ArrayStore:
         self.feature_predictor: dict[tuple[int, int], np.ndarray] = {}  # u8 k/255
         self.round_transforms: dict[tuple[int, int], np.ndarray] = {}  # 4x4 µm
         self.global_xforms: dict[int, tuple] = {}  # (affine, origin, spacing)
-        # (field, attrs) by (tile, round): the decode warp refuses them
-        self.flow_fields: dict[tuple[int, int], tuple] = {}
+        # (field, attrs) by (tile, round); its version counts the writes, so
+        # that a warped stack built before one is known to be stale
+        self.flow_fields: dict[tuple[int, int], tuple] = _VersionedDict()
         self.chromatic_calibration: dict = {}
         self.chromatic_diagnostics: Optional[dict] = None
         # bumped by every calibration save: a warped stack built before it is stale
@@ -114,6 +147,7 @@ class ArrayStore:
         feature_predictor=None,  # (tiles, bits, Z, Y, X) u8
         round_transforms=None,  # (tiles, rounds, 4, 4)
         global_xforms=None,  # per tile (affine, origin, spacing)
+        flow_fields=None,  # {(tile, round): (field (3, fz, fy, fx), attrs)}
         channel_psfs=(),
         na: float = 1.35,
         ri: float = 1.4,
@@ -159,6 +193,8 @@ class ArrayStore:
                 store.global_xforms[t] = tuple(
                     np.asarray(v, np.float64) for v in global_xforms[t]
                 )
+        for (t, r), (field, attrs) in (flow_fields or {}).items():
+            store.save_local_sofima_flow_field(field, tile=t, round=r, **attrs)
         return store
 
     # ---------------------------------------------------------- images
@@ -179,6 +215,48 @@ class ArrayStore:
         if (tile, round_idx) not in self.round_transforms:
             raise KeyError(f"missing round transform for tile={tile} round={round_idx}")
         return self.round_transforms[(tile, round_idx)]
+
+    @property
+    def flow_version(self) -> int:
+        """Writes to ``flow_fields`` so far."""
+        return self.flow_fields.version
+
+    def save_local_sofima_flow_field(
+        self,
+        field,
+        *,
+        tile: int,
+        round: int,
+        map_stride_zyx_px,
+        map_box_start_xyz_px,
+        map_box_size_xyz_px,
+        reference_shape_zyx_px,
+        moving_shape_zyx_px=None,
+        sofima_status: str = "ok",
+        valid_flow_vectors: int = 0,
+        **extra,
+    ) -> None:
+        """Store a (3, fz, fy, fx) float32 flow field of ``(tile, round)``
+        with its attributes in the reference's JSON types."""
+        field = np.asarray(field, np.float32)
+        if field.ndim != 4 or field.shape[0] != 3:
+            raise ValueError(f"a flow field is (3, fz, fy, fx), got {field.shape}")
+        attrs = {
+            "map_stride_zyx_px": [float(v) for v in map_stride_zyx_px],
+            "map_box_start_xyz_px": [float(v) for v in map_box_start_xyz_px],
+            "map_box_size_xyz_px": [float(v) for v in map_box_size_xyz_px],
+            "reference_shape_zyx_px": [int(v) for v in reference_shape_zyx_px],
+            "sofima_status": str(sofima_status),
+            "valid_flow_vectors": int(valid_flow_vectors),
+        }
+        if moving_shape_zyx_px is not None:
+            attrs["moving_shape_zyx_px"] = [int(v) for v in moving_shape_zyx_px]
+        attrs.update(json.loads(json.dumps(_json_safe(extra))))
+        self.flow_fields[(int(tile), int(round))] = (field.copy(), attrs)
+
+    def load_local_sofima_flow_field(self, tile: int, round: int):
+        """(field, attrs) of ``(tile, round)``, or None."""
+        return self.flow_fields.get((int(tile), int(round)))
 
     def chromatic_transform(self, emission_um: float) -> np.ndarray:
         """The stored chromatic affine of an emission wavelength (float32),

@@ -80,13 +80,14 @@ def register_rounds_to_fixed(
     upsample_factor: int = 10,
     return_warped: bool = False,
     device="cuda",
-) -> tuple[np.ndarray, "np.ndarray | None"]:
+) -> tuple[np.ndarray, "torch.Tensor | None"]:
     """Register a (R, z, y, x) stack of moving rounds against ``fixed``.
 
     Returns ``(transforms, warped)``: (R, 4, 4) physical µm transforms and,
     with ``return_warped``, the (R, z, y, x) uint16 moving rounds
-    resampled into the fixed frame (else None). Arrays are moved to
-    ``device``; tensors already there pass through without a copy."""
+    resampled into the fixed frame, left on the device (else None).
+    Arrays are moved to ``device``; tensors already there pass through
+    without a copy."""
     movings = torch.as_tensor(movings, device=device)
     fixed = torch.as_tensor(fixed, device=device)
     if movings.ndim != 4 or tuple(movings.shape[1:]) != tuple(fixed.shape):
@@ -96,9 +97,7 @@ def register_rounds_to_fixed(
     shifts_np = shifts.cpu().numpy()
     transforms = np.tile(np.eye(4, dtype=np.float32), (len(shifts_np), 1, 1))
     transforms[:, :3, 3] = shifts_np * spacing
-    if warped is not None:
-        warped = np.stack([w.cpu().numpy() for w in warped])
-    return transforms, warped
+    return transforms, (torch.stack(warped) if warped is not None else None)
 
 
 def register_pair_to_fixed(

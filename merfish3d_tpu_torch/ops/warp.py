@@ -1,8 +1,10 @@
-"""Affine volume warps (counterpart of the affine half of
-``merfish3d_tpu/ops/warp.py``): ``transform_to_pixel``, the three warp
-classes (``translate_volume``, ``separable_diagonal_resample`` and the
-trilinear ``_affine_warp_core``), ``warp_affine``, the batched forms and
-``transform_points_to_reference``.
+"""Affine and affine + flow volume warps (counterpart of
+``merfish3d_tpu/ops/warp.py``): ``transform_to_pixel``, the three affine
+warp classes (``translate_volume``, ``separable_diagonal_resample`` and
+the trilinear ``_affine_warp_core``), ``warp_affine``, the composed
+affine + flow warp ``warp_affine_plus_flow`` (the separable roll-blend
+``_flow_warp_separable_core`` or the gather ``_affine_flow_warp_core``),
+the batched forms and ``transform_points_to_reference``.
 
 Physical-transform convention as the reference's: the 4x4
 ``transform_zyx_um`` maps output/reference physical coordinates to
@@ -17,8 +19,10 @@ are summed in ``itertools.product`` order. Sample coordinates are
 per-axis multiply-adds in float32, never a matrix product (the reference
 records multi-pixel errors from reduced-precision coordinate products,
 ``docs/kernels.md``), and not ``grid_sample``, whose normalized
-coordinates round positions differently. The warps take and return
-tensors on the input's device. The flow warps are not ported.
+coordinates round positions differently. A flow field is interpolated
+in ``nearest`` mode, which clamps each node index (not the coordinate)
+and takes every node as valid. The warps take and return tensors on the
+input's device.
 """
 
 from __future__ import annotations
@@ -98,9 +102,11 @@ def separable_diagonal_resample(vol: torch.Tensor, scale, offset_px, cval: float
     return out
 
 
-def _interp_nodes(coord: torch.Tensor, size: int, order: int):
+def _interp_nodes(coord: torch.Tensor, size: int, order: int, mode: str = "constant"):
     """JAX's per-axis (index, valid, weight) nodes of order 0 or 1; weight
-    None is the unit weight of order 0."""
+    None is the unit weight of order 0. ``constant`` mode marks a node
+    outside ``[0, size)`` invalid; ``nearest`` clamps its index and keeps
+    it (valid None)."""
     if order == 1:
         lower = torch.floor(coord)
         upper_w = coord - lower
@@ -113,7 +119,30 @@ def _interp_nodes(coord: torch.Tensor, size: int, order: int):
         nodes = [(idx.to(torch.int64), None)]
     else:
         raise NotImplementedError("map_coordinates takes order 0 or 1")
+    if mode == "nearest":
+        return [(i.clamp(0, size - 1), None, w) for i, w in nodes]
+    if mode != "constant":
+        raise NotImplementedError("map_coordinates takes mode 'constant' or 'nearest'")
     return [(i.clamp(0, size - 1), (i >= 0) & (i < size), w) for i, w in nodes]
+
+
+def _map_coordinates(vol: torch.Tensor, coords, *, order: int = 1, mode: str = "constant",
+                     cval: float = 0.0) -> torch.Tensor:
+    """JAX's ``map_coordinates`` of a 3-D volume at three broadcastable
+    coordinate tensors: corners in ``itertools.product`` order, each
+    weighted z·y·x and summed left to right."""
+    sz, sy, sx = vol.shape
+    flat = vol.reshape(-1)
+    nodes = [_interp_nodes(c, size, order, mode) for c, size in zip(coords, (sz, sy, sx))]
+    acc = None
+    for (iz, vz, wz), (iy, vy, wy), (ix, vx, wx) in itertools.product(*nodes):
+        corner = flat[(iz * sy + iy) * sx + ix]
+        if vz is not None:
+            corner = torch.where(vz & vy & vx, corner, cval)
+        if wz is not None:
+            corner = wz * wy * wx * corner
+        acc = corner if acc is None else acc + corner
+    return acc
 
 
 def _affine_warp_core(
@@ -132,8 +161,6 @@ def _affine_warp_core(
     nz, ny, nx = reference_shape
     dev = image.device
     img = image.to(torch.float32)
-    flat = img.reshape(-1)
-    sz, sy, sx = img.shape
     m = np.asarray(matrix_px, np.float32)
     o = np.asarray(offset_px, np.float32)
     yy = torch.arange(ny, dtype=torch.float32, device=dev).reshape(1, ny, 1)
@@ -147,14 +174,7 @@ def _affine_warp_core(
             float(m[a, 0]) * zc + float(m[a, 1]) * yy + float(m[a, 2]) * xx + float(o[a])
             for a in range(3)
         ]
-        nodes = [_interp_nodes(c, size, order) for c, size in zip(src, (sz, sy, sx))]
-        acc = None
-        for (iz, vz, wz), (iy, vy, wy), (ix, vx, wx) in itertools.product(*nodes):
-            corner = torch.where(vz & vy & vx, flat[(iz * sy + iy) * sx + ix], cval)
-            if wz is not None:
-                corner = wz * wy * wx * corner
-            acc = corner if acc is None else acc + corner
-        out[z0: z0 + zc.shape[0]] = acc
+        out[z0: z0 + zc.shape[0]] = _map_coordinates(img, src, order=order, cval=cval)
     return out
 
 
@@ -258,6 +278,313 @@ def warp_affine_batch(
             batch = torch.as_tensor(images[sel], device=device)
             for j, i in enumerate(sel):
                 out[i] = _warp_one(batch[j], kind, mats[i], offs[i], images.shape[1:]).cpu().numpy()
+    return out
+
+
+# ------------------------------------------------------------ affine + flow
+# total roll terms over the three axes above which the separable flow warp
+# gives way to the gather (each term is a few full-volume passes)
+_SEPARABLE_FLOW_MAX_TERMS = 160
+
+# device bytes one group of the batched separable flow warp may hold; each
+# item keeps ~8 volume-sized float32 buffers live (input, output
+# accumulator, upsampled flow, shift field, hat weight, shifted copy and
+# product). Sized for an 80 GB card beside the decode's own stack; tests
+# shrink it to force the grouped path
+_FLOW_WARP_BUDGET_BYTES = 24 << 30
+_FLOW_WARP_LIVE_PER_ITEM = 8
+
+
+def _div(x: torch.Tensor, value) -> torch.Tensor:
+    """``x / value`` as a true float32 division on every device: CUDA
+    turns a division by a host scalar into a product with its reciprocal,
+    which can round one bit apart, so the divisor goes as a device
+    tensor."""
+    return x / torch.tensor(float(value), dtype=torch.float32, device=x.device)
+
+
+def _upsample_flow_channel(ch: torch.Tensor, *, out_shape, stride_zyx, box_start_zyx) -> torch.Tensor:
+    """One lattice flow channel on the full voxel grid: order-1
+    ``map_coordinates`` in ``nearest`` mode under a diagonal lattice map,
+    as three 1-D takes. ``stride_zyx`` and ``box_start_zyx`` are float32
+    values."""
+    out = ch.to(torch.float32)
+    for ax in range(3):
+        n = int(out_shape[ax])
+        m = out.shape[ax]
+        pos = torch.arange(n, dtype=torch.float32, device=out.device)
+        src = torch.clamp(_div(pos - float(box_start_zyx[ax]), stride_zyx[ax]), 0.0, float(m - 1))
+        i0 = torch.floor(src).to(torch.int64)
+        f = src - i0.to(torch.float32)
+        i1 = torch.clamp(i0 + 1, max=m - 1)
+        a = out.index_select(ax, i0)
+        b = out.index_select(ax, i1)
+        shape = [1, 1, 1]
+        shape[ax] = n
+        fb = f.reshape(shape)
+        out = (1.0 - fb) * a + fb * b
+    return out
+
+
+def _shifted(vol: torch.Tensor, k: int, axis: int) -> torch.Tensor:
+    """``vol[p + k]`` along ``axis``, 0 where ``p + k`` leaves the axis:
+    ``roll(vol, -k)`` with the wrapped part zeroed."""
+    n = vol.shape[axis]
+    out = torch.zeros_like(vol)
+    if abs(k) < n:
+        out.narrow(axis, max(-k, 0), n - abs(k)).copy_(vol.narrow(axis, max(k, 0), n - abs(k)))
+    return out
+
+
+def _variable_shift_axis(vol: torch.Tensor, shift: torch.Tensor, axis: int, k0: int, k1: int) -> torch.Tensor:
+    """1-D linear resample with a per-voxel source shift along ``axis``,
+    ``out[p] = lerp(vol, p_axis + shift[p])`` with zero edges: ``shift``
+    lies in ``[k0, k1)``, so the terms k0..k1, weighted by the hat
+    ``max(0, 1 - |shift - k|)``, are summed in that order."""
+    acc = torch.zeros(vol.shape, dtype=torch.float32, device=vol.device)
+    for k in range(k0, k1 + 1):
+        w = torch.clamp(1.0 - torch.abs(shift - float(k)), min=0.0)
+        acc = acc + w * _shifted(vol, k, axis)
+    return acc
+
+
+def _flow_warp_separable_core(images, flows_xyz, scales, offsets_px, strides_zyx, box_starts_zyx, *,
+                              k_ranges, out_shape) -> torch.Tensor:
+    """Separable composed diagonal-affine + flow warp of a (B, z, y, x)
+    batch: per axis z, y, x (flow channels 2, 1, 0) the per-voxel shift
+    ``s = (m - 1)·pos + off + m·d`` and one variable-shift resample.
+    ``scales``, ``offsets_px``, ``strides_zyx`` and ``box_starts_zyx``
+    are (B, 3) float32 numpy arrays; ``k_ranges`` the batch's shared
+    per-axis roll ranges. Exact for constant flows; a varying flow is
+    evaluated at rows the earlier axes already displaced, as the
+    reference's factorization does."""
+    out = images.to(torch.float32)
+    dev = out.device
+    # (3, B, 3): m - 1, offset and m of each item and axis, in float32
+    params = torch.as_tensor(np.stack([scales - np.float32(1.0), offsets_px, scales]).astype(np.float32),
+                             device=dev)
+    for ax, ch in ((0, 2), (1, 1), (2, 0)):
+        d = torch.stack([
+            _upsample_flow_channel(flows_xyz[i, ch], out_shape=out_shape, stride_zyx=strides_zyx[i],
+                                   box_start_zyx=box_starts_zyx[i])
+            for i in range(out.shape[0])
+        ])
+        shape = [1, 1, 1, 1]
+        shape[ax + 1] = int(out_shape[ax])
+        pos = torch.arange(int(out_shape[ax]), dtype=torch.float32, device=dev).reshape(shape)
+        m_minus_1, offset, m = (params[k, :, ax].reshape(-1, 1, 1, 1) for k in range(3))
+        s = m_minus_1 * pos + offset + m * d
+        del d
+        out = _variable_shift_axis(out, s, ax + 1, *k_ranges[ax])
+    return out
+
+
+def _separable_flow_bounds(matrix_px, offset_px, flow_xyz, reference_shape):
+    """Per-axis roll ranges ``((k0, k1), ...)`` of the separable flow warp
+    in float64 on the host, or None where it does not apply: a matrix
+    that is not diagonal within 1e-8, a flow that is not finite, or more
+    than ``_SEPARABLE_FLOW_MAX_TERMS`` terms."""
+    if not np.allclose(matrix_px, np.diag(np.diag(matrix_px)), atol=1e-8):
+        return None
+    if not np.all(np.isfinite(flow_xyz)):
+        return None
+    scale = np.diag(matrix_px).astype(np.float64)
+    ranges = []
+    total = 0
+    for ax, ch in ((0, 2), (1, 1), (2, 0)):
+        n = float(reference_shape[ax]) - 1.0
+        m = scale[ax]
+        dmin = float(flow_xyz[ch].min())
+        dmax = float(flow_xyz[ch].max())
+        lin = [(m - 1.0) * 0.0, (m - 1.0) * n]
+        dd = [m * dmin, m * dmax]
+        smin = min(lin) + min(dd) + float(offset_px[ax])
+        smax = max(lin) + max(dd) + float(offset_px[ax])
+        k0 = int(np.floor(smin))
+        k1 = int(np.floor(smax)) + 1
+        ranges.append((k0, k1))
+        total += k1 - k0 + 1
+    if total > _SEPARABLE_FLOW_MAX_TERMS:
+        return None
+    return tuple(ranges)
+
+
+def _affine_flow_warp_core(image, flow_xyz, matrix_px, offset_px, stride_zyx, box_start_zyx, *,
+                           reference_shape, z_chunk: int = 4) -> torch.Tensor:
+    """Single-resample composed warp, ``z_chunk`` output planes at a time:
+    the flow interpolated at each reference voxel (order 1, ``nearest``),
+    the voxel displaced by it, the pixel affine applied as per-axis
+    float32 multiply-adds, and the native image sampled once (order 1,
+    constant 0)."""
+    nz, ny, nx = (int(v) for v in reference_shape)
+    dev = image.device
+    img = image.to(torch.float32)
+    flow = flow_xyz.to(torch.float32)
+    m = np.asarray(matrix_px, np.float32)
+    o = np.asarray(offset_px, np.float32)
+    st = np.asarray(stride_zyx, np.float32)
+    bs = np.asarray(box_start_zyx, np.float32)
+    yy = torch.arange(ny, dtype=torch.float32, device=dev).reshape(1, ny, 1)
+    xx = torch.arange(nx, dtype=torch.float32, device=dev).reshape(1, 1, nx)
+    fy = _div(yy - float(bs[1]), st[1])
+    fx = _div(xx - float(bs[2]), st[2])
+    out = torch.empty((nz, ny, nx), dtype=torch.float32, device=dev)
+    for z0 in range(0, nz, z_chunk):
+        zc = torch.arange(z0, min(z0 + z_chunk, nz), dtype=torch.float32, device=dev).reshape(-1, 1, 1)
+        lattice = [_div(zc - float(bs[0]), st[0]), fy, fx]
+        dx, dy, dz = (_map_coordinates(flow[c], lattice, mode="nearest") for c in range(3))
+        zd, yd, xd = zc + dz, yy + dy, xx + dx
+        src = [
+            float(m[a, 0]) * zd + float(m[a, 1]) * yd + float(m[a, 2]) * xd + float(o[a])
+            for a in range(3)
+        ]
+        out[z0: z0 + zc.shape[0]] = _map_coordinates(img, src)
+    return out
+
+
+def _flow_batch_plan(transforms_zyx_um, spacing_zyx_um, flows_np, out_shape):
+    """Pixel matrices and offsets of a flow batch, and its shared roll
+    ranges: the union of every item's separable bounds, or None when an
+    item has none or the union exceeds the term cap."""
+    n = flows_np.shape[0]
+    mats = np.empty((n, 3, 3), np.float32)
+    offs = np.empty((n, 3), np.float32)
+    for i in range(n):
+        mats[i], offs[i] = transform_to_pixel(transforms_zyx_um[i], spacing_zyx_um)
+    per_item = [_separable_flow_bounds(mats[i], offs[i], flows_np[i], out_shape) for i in range(n)]
+    if any(r is None for r in per_item):
+        return mats, offs, None
+    merged = tuple(
+        (min(r[ax][0] for r in per_item), max(r[ax][1] for r in per_item)) for ax in range(3)
+    )
+    if sum(k1 - k0 + 1 for k0, k1 in merged) > _SEPARABLE_FLOW_MAX_TERMS:
+        return mats, offs, None
+    return mats, offs, merged
+
+
+def warp_affine_plus_flow(
+    image,
+    flow_xyz,
+    *,
+    transform_zyx_um,
+    spacing_zyx_um,
+    reference_shape,
+    map_stride_zyx_px,
+    map_box_start_xyz_px,
+    reference_origin_zyx_um=(0.0, 0.0, 0.0),
+    z_chunk: int = 4,
+    method: str = "auto",
+    device=None,
+) -> torch.Tensor:
+    """Composed affine + flow warp with a single resample of the native
+    image. ``flow_xyz`` is (3, fz, fy, fx), channels X, Y, Z, in reference
+    px on the lattice of ``map_stride_zyx_px`` from
+    ``map_box_start_xyz_px``. ``method``: ``"auto"`` takes the separable
+    roll-blend path where the shapes match and the bounds admit it, else
+    the gather; ``"separable"`` and ``"gather"`` force one. A tensor stays
+    on its device; anything else goes to ``device`` (the card by
+    default)."""
+    img = as_device_tensor(image, device).to(torch.float32)
+    matrix_px, offset_px = transform_to_pixel(transform_zyx_um, spacing_zyx_um, reference_origin_zyx_um)
+    box_start_zyx = np.asarray(map_box_start_xyz_px, np.float32)[::-1].copy()
+    stride = np.asarray(map_stride_zyx_px, np.float32)
+    ref_shape = tuple(int(v) for v in reference_shape)
+    flow_np = np.asarray(flow_xyz.cpu() if isinstance(flow_xyz, torch.Tensor) else flow_xyz, np.float32)
+    flow = torch.as_tensor(flow_np, device=img.device)
+    if method != "gather" and tuple(img.shape) == ref_shape:
+        k_ranges = _separable_flow_bounds(matrix_px, offset_px, flow_np, ref_shape)
+        if k_ranges is not None:
+            return _flow_warp_separable_core(
+                img[None], flow[None], np.diag(matrix_px)[None].astype(np.float32), offset_px[None],
+                stride[None], box_start_zyx[None], k_ranges=k_ranges, out_shape=ref_shape,
+            )[0]
+    if method == "separable":
+        raise ValueError(
+            "separable flow warp requires a diagonal pixel affine, image.shape == reference_shape, "
+            "and bounded flow"
+        )
+    return _affine_flow_warp_core(img, flow, matrix_px, offset_px, stride, box_start_zyx,
+                                  reference_shape=ref_shape, z_chunk=z_chunk)
+
+
+def warp_affine_plus_flow_batch_device(
+    images,
+    flows_xyz,
+    transforms_zyx_um,
+    spacing_zyx_um,
+    map_strides_zyx_px,
+    map_box_starts_xyz_px,
+    *,
+    z_chunk: int = 4,
+    device=None,
+) -> torch.Tensor:
+    """(B, z, y, x) composed affine + flow warps, device in and device
+    out, each item as :func:`warp_affine_plus_flow` warps it: the
+    separable path over the batch's merged roll ranges when every item
+    admits it (in groups of at most ``_FLOW_WARP_BUDGET_BYTES`` live
+    bytes; the grouping does not change a value), else the gather for
+    every item."""
+    images = as_device_tensor(images, device).to(torch.float32)
+    out_shape = tuple(int(v) for v in images.shape[1:])
+    flows_np = np.asarray(flows_xyz, np.float32)
+    strides = np.asarray(map_strides_zyx_px, np.float32)
+    box_zyx = np.asarray(map_box_starts_xyz_px, np.float32)[:, ::-1].copy()
+    mats, offs, k_ranges = _flow_batch_plan(transforms_zyx_um, spacing_zyx_um, flows_np, out_shape)
+    flows = torch.as_tensor(flows_np, device=images.device)
+    n = images.shape[0]
+    if k_ranges is None:
+        return torch.stack([
+            _affine_flow_warp_core(images[i], flows[i], mats[i], offs[i], strides[i], box_zyx[i],
+                                   reference_shape=out_shape, z_chunk=z_chunk)
+            for i in range(n)
+        ])
+    scales = np.stack([np.diag(m) for m in mats]).astype(np.float32)
+    group = max(1, int(_FLOW_WARP_BUDGET_BYTES // (_FLOW_WARP_LIVE_PER_ITEM * images[0].numel() * 4)))
+    out = torch.empty_like(images)
+    for s in range(0, n, group):
+        e = min(n, s + group)
+        out[s:e] = _flow_warp_separable_core(images[s:e], flows[s:e], scales[s:e], offs[s:e], strides[s:e],
+                                             box_zyx[s:e], k_ranges=k_ranges, out_shape=out_shape)
+    return out
+
+
+def warp_affine_plus_flow_batch(
+    images: np.ndarray,
+    flows_xyz: np.ndarray,
+    transforms_zyx_um: np.ndarray,
+    spacing_zyx_um,
+    map_strides_zyx_px: np.ndarray,
+    map_box_starts_xyz_px: np.ndarray,
+    *,
+    hbm_budget_bytes: int = 12 << 30,
+    z_chunk: int = 4,
+    device="cuda",
+) -> np.ndarray:
+    """Host in, host out: sub-batches within ``hbm_budget_bytes`` uploaded
+    to ``device`` and warped as :func:`warp_affine_plus_flow_batch_device`
+    does, over the whole batch's merged roll ranges, and read back."""
+    images = np.ascontiguousarray(images, dtype=np.float32)
+    flows_np = np.asarray(flows_xyz, np.float32)
+    strides = np.asarray(map_strides_zyx_px, np.float32)
+    box_zyx = np.asarray(map_box_starts_xyz_px, np.float32)[:, ::-1].copy()
+    out_shape = images.shape[1:]
+    mats, offs, k_ranges = _flow_batch_plan(transforms_zyx_um, spacing_zyx_um, flows_np, out_shape)
+    scales = np.stack([np.diag(m) for m in mats]).astype(np.float32)
+    out = np.empty_like(images)
+    live = 6 if k_ranges is not None else 3
+    for s, e in _sub_batches(images.shape[0], images[0].nbytes, hbm_budget_bytes, live_per_item=live):
+        batch = torch.as_tensor(images[s:e], device=device)
+        flows = torch.as_tensor(flows_np[s:e], device=device)
+        if k_ranges is not None:
+            res = _flow_warp_separable_core(batch, flows, scales[s:e], offs[s:e], strides[s:e], box_zyx[s:e],
+                                            k_ranges=k_ranges, out_shape=out_shape)
+        else:
+            res = torch.stack([
+                _affine_flow_warp_core(batch[j], flows[j], mats[i], offs[i], strides[i], box_zyx[i],
+                                       reference_shape=out_shape, z_chunk=z_chunk)
+                for j, i in enumerate(range(s, e))
+            ])
+        out[s:e] = res.cpu().numpy()
     return out
 
 

@@ -142,9 +142,9 @@ class PixelDecoder:
         self._barcodes_loaded: dict = {}
         # one-deep device memo: seeding, every optimization pass and the
         # final decode of a tile reuse one warped product stack, keyed by
-        # (tile, the store's chromatic version): every calibration save
-        # makes the warped stack stale
-        self._warped_memo: Optional[tuple[tuple[int, int], torch.Tensor]] = None
+        # (tile, the store's chromatic and flow versions): every calibration
+        # save and every flow-field write makes the warped stack stale
+        self._warped_memo: Optional[tuple[tuple[int, int, int], torch.Tensor]] = None
 
     # ------------------------------------------------------------- codebook
     def _load_codebook(self) -> None:
@@ -174,7 +174,7 @@ class PixelDecoder:
     def _load_warped_bit_stack(self, tile_idx: int) -> torch.Tensor:
         """decon × probability of every bit, in the round-1 frame, as one
         (bits, z, y, x) float32 stack on the device (u16 and u8 upload)."""
-        key = (tile_idx, self._store.chromatic_version)
+        key = (tile_idx, self._store.chromatic_version, self._store.flow_version)
         if self._warped_memo is not None and self._warped_memo[0] == key:
             return self._warped_memo[1]
         self._warped_memo = None

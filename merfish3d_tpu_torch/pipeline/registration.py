@@ -1,7 +1,6 @@
-"""Fiducial round registration, RLGC deconvolution and readout-bit
-preprocessing (counterpart of ``DataRegistration`` in
-``merfish3d_tpu/pipeline/registration.py`` without deformable flow or
-multi-tile stitching).
+"""Fiducial round registration, deformable flow, RLGC deconvolution and
+readout-bit preprocessing (counterpart of ``DataRegistration`` in
+``merfish3d_tpu/pipeline/registration.py`` without multi-tile stitching).
 
 Per tile: round 0's fiducial image, deconvolved with the fiducial PSF
 when ``decon_fiducial`` (seed ``42 + tile``), is the reference (identity
@@ -14,7 +13,11 @@ a round (seed ``42 + tile + 1000·round``) — and registered against the
 reference by staged phase correlation
 (:func:`..ops.registration.register_rounds_to_fixed`); the measured
 translations become the store's round transforms, and the fiducials
-resampled into the reference frame are stored as u16.
+resampled into the reference frame are stored as u16. With
+``deformable_registration``, each resampled u16 round, still on the
+device, and the reference volume give the round's residual flow field
+(:func:`..ops.flow.estimate_sofima_flow_field_xyz_px` with
+``sofima_config``), stored with its attributes.
 
 Then the readout bits, grouped by PSF (excitation < 600 nm: PSF 1, else
 2) and chunked by ``min(bit_batch_size, max_vmap_batch)``, are
@@ -39,6 +42,7 @@ import torch
 
 from ..datastore.array_store import ArrayStore
 from ..models.ufish import DEFAULT_UFISH_MODEL, get_predictor
+from ..ops.flow import SofimaRegistrationConfig, estimate_sofima_flow_field_xyz_px
 from ..ops.registration import register_rounds_to_fixed
 from ..ops.rlgc import chunked_rlgc, max_vmap_batch, rlgc_batch
 from .handoff import to_cache_forms
@@ -59,6 +63,8 @@ class DataRegistration:
         decon_readout: bool = True,
         decon_max_iters: int = 40,
         crop_yx_decon: Optional[int] = None,
+        deformable_registration: bool = False,
+        sofima_config: SofimaRegistrationConfig = SofimaRegistrationConfig(),
     ):
         if (decon_fiducial or decon_readout) and not store.channel_psfs:
             raise ValueError(
@@ -76,6 +82,8 @@ class DataRegistration:
         self._decon_readout = bool(decon_readout)
         self._decon_max_iters = int(decon_max_iters)
         self._crop_yx_decon = crop_yx_decon
+        self._deformable = bool(deformable_registration)
+        self._sofima_config = sofima_config
 
     def register_all_tiles(self) -> None:
         store = self._store
@@ -144,9 +152,13 @@ class DataRegistration:
                 reference_dev, movings, spacing_zyx_um=store.voxel_size_zyx_um,
                 return_warped=True, device=self._device,
             )
+            warped_host = warped.cpu().numpy()
             for i, r in enumerate(rounds):
                 store.round_transforms[(tile, r)] = transforms[i].astype(np.float64)
-                store.fiducial_registered[(tile, r)] = warped[i]
+                store.fiducial_registered[(tile, r)] = warped_host[i]
+                if self._deformable:
+                    flow, meta = estimate_sofima_flow_field_xyz_px(reference_dev, warped[i], self._sofima_config)
+                    store.save_local_sofima_flow_field(flow, tile=tile, round=r, **meta)
 
     # ------------------------------------------------------- readout bits
     @torch.no_grad()

@@ -99,6 +99,25 @@ bit on a random production-shape tile (16, 16, 1024, 1024) and times
 each (the kernel alone, CUDA events, medians of 20, two passes in turn),
 beside the byte bound and ``torch``'s ``copy_`` of the same bytes.
 
+    python3 profile_decode.py --flow
+
+instead renders the deformed production tile (``chip_smoke.py`` phase
+10's input), registers it as phase 10 does (readout RLGC, 10 iterations,
+DoG, deformable flow) and then
+times one round's flow estimate (round 1, the default
+``SofimaRegistrationConfig``) by part — each patch cross-correlation
+pass, the host cleaning, the relaxation (its sweeps), the re-warp, the
+composition — on the host clock with ``torch.cuda.synchronize()`` at
+each part's entry and exit (means of 3 estimates after a warm-up), then
+one estimate under ``torch.profiler``; then where the field is right:
+each moving round's first even bit warped by its affine alone and with
+the flow, its isolated spots against their true positions, and round
+1's valid sites split by whether their patch holds a bead, each group's
+spread about the median; then one decode-style flow warp of the tile's 16 bits
+(``warp_bit_images_to_reference``) under ``torch.profiler``: wall, device
+busy share and the top device ops; last, phase 10's decode of the store
+with its flow fields and again without them (F1 of each).
+
     python3 profile_decode.py --ufish
 
 instead runs the full-width c32 U-FISH predictor (seeded weights, the
@@ -658,6 +677,186 @@ def device_ms(fn, fragments, reps: int = 10) -> float:
     return rows["kernel"] / reps
 
 
+FLOW_PARTS = (
+    ("_patch_xcorr_flow", "patch cross-correlation pass (gather, torch.fft, peak statistics, read-back)"),
+    ("_clean_flow", "cleaning (host numpy)"),
+    ("_relax_field", "relaxation (one scalar read a sweep)"),
+    ("_flow_warp_separable_core", "re-warp between passes (separable)"),
+    ("_compose_flow_fields_same_grid", "composition (host)"),
+)
+
+
+def isolated_spots(raw, bit: int, min_gap=(3.0, 8.0, 8.0)) -> np.ndarray:
+    """Ground-truth positions (px, the tile's frame) of the spots bit
+    ``bit`` images with no other of its spots within ``min_gap`` (z, y,
+    x) and clear of the volume's border."""
+    import numpy as np
+
+    gt = raw.ground_truth
+    genes = list(raw.gene_ids)
+    on = np.asarray([raw.codebook[genes.index(g), bit] > 0 for g in gt["gene_id"]])
+    pts = np.column_stack([gt["z"], gt["y"], gt["x"]])[on]
+    gap = np.asarray(min_gap)
+    near = (np.abs(pts[:, None, :] - pts[None, :, :]) < gap).all(axis=2).sum(axis=1) > 1
+    shape = np.asarray(raw.bits.shape[2:])
+    inside = np.all((pts >= (3, 8, 8)) & (pts < shape - (4, 9, 9)), axis=1)
+    return pts[~near & inside]
+
+
+def flow_quality(raw, store, ref) -> None:
+    """Where the flow field is right: each moving round's first even bit
+    (no chromatic affine), warped by its round's affine alone and with the
+    flow, its isolated spots' centroids against their true positions
+    (median and 95th percentile of max |delta| over the axes, px); then
+    round 1's first pass: the valid sites whose patch holds a round-0 bead
+    and those whose patch holds none, with the spread of each group's
+    vectors about the median of the valid ones."""
+    import numpy as np
+    import torch
+
+    from merfish3d_tpu_torch.ops import flow, warp
+    from merfish3d_tpu_torch.utils import chromatic_calibration as cal
+
+    log = chip_smoke.log
+    spacing = np.asarray(raw.voxel_size_zyx_um)
+    for r in range(1, raw.fiducial.shape[1]):
+        bit = 2 * r
+        pts = isolated_spots(raw, bit)
+        windows = np.round(pts).astype(int)
+        moving = torch.as_tensor(raw.bits[0, bit], device="cuda").to(torch.float32)
+        transform = store.round_transforms[(0, r)]
+        field, attrs = store.flow_fields[(0, r)]
+        rows = {}
+        for name, vol in (
+            ("affine", warp.warp_affine(moving, transform_zyx_um=transform, spacing_zyx_um=spacing,
+                                        reference_shape=tuple(moving.shape))),
+            ("flow", warp.warp_affine_plus_flow(moving, field, transform_zyx_um=transform, spacing_zyx_um=spacing,
+                                                reference_shape=tuple(moving.shape),
+                                                map_stride_zyx_px=attrs["map_stride_zyx_px"],
+                                                map_box_start_xyz_px=attrs["map_box_start_xyz_px"])),
+        ):
+            landing = np.abs(chip_smoke.bead_centroids(vol.cpu().numpy(), windows) - pts).max(axis=1)
+            rows[name] = (float(np.median(landing)), float(np.percentile(landing, 95)))
+        log(f"  round {r} bit {bit}: {len(pts)} isolated spots against their true positions: affine alone "
+            f"median {rows['affine'][0]:.3f} px, p95 {rows['affine'][1]:.3f}; affine + flow median "
+            f"{rows['flow'][0]:.3f} px, p95 {rows['flow'][1]:.3f}")
+    cfg = flow.SofimaRegistrationConfig()
+    patch, stride = cfg.resolve_patch_and_stride(tuple(ref.shape))
+    moving = torch.as_tensor(store.fiducial_registered[(0, 1)], device="cuda").to(torch.float32)
+    vectors, ratios, sharps = flow._patch_xcorr_flow(ref, moving, patch_size=patch, strides=stride)
+    valid = flow._clean_flow(vectors, ratios, sharps, cfg)
+    beads = cal.detect_beads(ref)
+    starts = np.stack(np.meshgrid(*[flow._lattice_starts(n, p, st) for n, p, st in zip(ref.shape, patch, stride)],
+                                  indexing="ij"), axis=-1)
+    holds = np.zeros(valid.shape, bool)
+    for b in beads:
+        holds |= np.all((starts <= b) & (b < starts + np.asarray(patch)), axis=-1)
+    med = np.median(vectors[valid], axis=0)
+    for name, group in (("with a bead", holds), ("without a bead", ~holds)):
+        sel = valid & group
+        dev = np.abs(vectors[sel] - med).max(axis=1) if sel.any() else np.zeros(1)
+        log(f"  round 1 first pass, sites {name}: {int(group.sum())}, valid {int(sel.sum())}; valid vectors' "
+            f"max |v - median| over the axes: median {float(np.median(dev)):.3f} px, p95 "
+            f"{float(np.percentile(dev, 95)):.3f}")
+
+
+def profile_flow(raw) -> None:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from merfish3d_tpu_torch.cli.simulation.convert_to_datastore import convert_data
+    from merfish3d_tpu_torch.ops import flow
+    from merfish3d_tpu_torch.pipeline import decode_warping
+    from merfish3d_tpu_torch.pipeline.registration import DataRegistration
+
+    log = chip_smoke.log
+    store = convert_data(raw)
+    DataRegistration(store, device="cuda", decon_fiducial=False, decon_readout=True,
+                     decon_max_iters=chip_smoke.PRODUCTION_DECON_ITERS, ufish_model="dog",
+                     deformable_registration=True).register_all_tiles()
+    ref = torch.as_tensor(store.fiducial_corrected[(0, 0)], device="cuda").to(torch.float32)
+    moving = torch.as_tensor(store.fiducial_registered[(0, 1)], device="cuda")
+    flow.estimate_sofima_flow_field_xyz_px(ref, moving)  # warm-up
+    seconds: dict = collections.defaultdict(list)
+    sweeps: list = []
+    originals = {}
+    for name, label in FLOW_PARTS:
+        inner = originals[name] = getattr(flow, name)
+
+        def run(*args, _inner=inner, _name=name, _label=label, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _inner(*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds[_label].append(time.perf_counter() - t0)
+            if _name == "_relax_field":
+                sweeps.append(out[1])
+            return out
+        setattr(flow, name, run)
+    walls = []
+    try:
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, meta = flow.estimate_sofima_flow_field_xyz_px(ref, moving)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    finally:
+        for name, inner in originals.items():
+            setattr(flow, name, inner)
+    wall = sum(walls) / len(walls)
+    lattice = tuple(store.flow_fields[(0, 1)][0].shape[1:])
+    log(f"round 1 flow estimate (lattice {lattice} of (10, 32, 32) patches, {meta['valid_flow_vectors']} valid): "
+        f"{wall:.4f} s, mean of {len(walls)} ({[round(w, 4) for w in walls]})")
+    for _, label in FLOW_PARTS:
+        calls = seconds[label]
+        log(f"  {label:78s} {sum(calls) / len(walls):.4f} s an estimate ({len(calls) // len(walls)} calls)"
+            + (f"; sweeps {sweeps}" if label.startswith("relaxation") else ""))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flow.estimate_sofima_flow_field_xyz_px(ref, moving)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = device_busy_seconds(prof.events())
+    log(f"profiled estimate: {wall:.4f} s; device busy {busy:.4f} s = {busy / wall:.4f} of the wall")
+    log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=15))
+    flow_quality(raw, store, ref)
+    bits, _ = store.registered_stack(0)
+    stack = torch.as_tensor(bits, device="cuda").to(torch.float32)
+    decode_warping.warp_bit_images_to_reference(stack, store=store, tile=0, bits=range(stack.shape[0]))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decode_warping.warp_bit_images_to_reference(stack, store=store, tile=0, bits=range(stack.shape[0]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = device_busy_seconds(prof.events())
+    log(f"profiled decode warp of the 16 bits (14 through their rounds' flow fields): {wall:.4f} s; device "
+        f"busy {busy:.4f} s = {busy / wall:.4f} of the wall")
+    log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=15))
+    del stack
+    with_flow = decode_f1(store, raw)
+    store.flow_fields.clear()
+    without = decode_f1(store, raw)
+    log(f"decode with the flow fields: F1 {with_flow['f1']:.4f} (tp {with_flow['true_positives']} fp "
+        f"{with_flow['false_positives']} fn {with_flow['false_negatives']}); the same store without them: F1 "
+        f"{without['f1']:.4f} (tp {without['true_positives']} fp {without['false_positives']} fn "
+        f"{without['false_negatives']})")
+
+
+def decode_f1(store, raw) -> dict:
+    """``chip_smoke.py`` phase 10's decode (``estimate_chromatic_affines``,
+    3 iterations, ``minimum_pixels=28``) of ``store``, matched to the
+    truth."""
+    from merfish3d_tpu_torch.cli.simulation.calculate_f1 import match_spots_f1
+    from merfish3d_tpu_torch.cli.simulation.pixeldecode import decode_pixels
+
+    table = decode_pixels(store, device="cuda", minimum_pixels=28, magnitude_threshold=(0.9, 10.0), num_tiles=1,
+                          num_iterations=3, estimate_chromatic_affines=True)
+    return match_spots_f1(table, raw.ground_truth, radius_um=1.0)
+
+
 def main() -> int:
     import torch
 
@@ -674,8 +873,13 @@ def main() -> int:
         k1_tiling()
         return 0
     t0 = time.perf_counter()
-    raw = chip_smoke.production_raw()
+    flow_mode = "--flow" in sys.argv[1:]
+    raw = chip_smoke.production_raw(chromatic=flow_mode,
+                                    deformation_px=chip_smoke.DEFORMATION_PX if flow_mode else 0.0)
     log(f"generator {time.perf_counter() - t0:.3f} s")
+    if flow_mode:
+        profile_flow(raw)
+        return 0
     if "--solve-routes" in sys.argv[1:]:
         solve_routes(raw)
         return 0

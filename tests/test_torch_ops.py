@@ -316,7 +316,8 @@ def test_port_sources_stand_alone():
     assert len(files) > 20
     scanned = {f.relative_to(root).as_posix() for f in files}
     assert {"merfish3d_tpu_torch/pipeline/chromatic.py",
-            "merfish3d_tpu_torch/utils/chromatic_calibration.py"} <= scanned
+            "merfish3d_tpu_torch/utils/chromatic_calibration.py",
+            "merfish3d_tpu_torch/ops/flow.py"} <= scanned
     for f in files:
         text = f.read_text()
         assert not imports.search(text), f"{f.name} imports JAX or the JAX package"

@@ -112,6 +112,7 @@ def test_register_rounds_matches_reference(rounds):
         fixed, movings, spacing_zyx_um=SPACING, return_warped=True)
     got_t, got_w = treg.register_rounds_to_fixed(
         fixed, movings, spacing_zyx_um=SPACING, return_warped=True, device="cpu")
+    got_w = got_w.numpy()  # the warped rounds stay on the device
     assert got_w.dtype == np.uint16 and got_w.shape == movings.shape
     spacing = np.asarray(SPACING)
     for r in range(len(movings)):

@@ -134,8 +134,9 @@ def test_decode_warp_refuses_general_affine(ref, tmp_path):
     stored chromatic calibration, is no longer refused: the port's decode
     warp applies it as the reference's ``warp_bit_images_to_reference``
     does (general class for that round's bits, diagonal for the bits
-    behind the chromatic affine). A stored flow field is what it still
-    refuses. Tolerance 1e-5 · max on the registered images: the general
+    behind the chromatic affine); with a stored flow field on that round,
+    its bits take the composed affine + flow warp as the reference's do.
+    Tolerance 1e-5 · max on the registered images: the general
     class's float32 coordinate sums may round one unit in the last place
     apart from XLA's contracted ones."""
     import shutil
@@ -168,11 +169,24 @@ def test_decode_warp_refuses_general_affine(ref, tmp_path):
     assert not np.array_equal(got[6], images[6])  # round 3's first bit moved
     one = decode_warping.warp_bit_image_to_reference(torch.as_tensor(images[7]), store=store, tile=0, bit=7)
     np.testing.assert_array_equal(one.numpy(), got[7])
-    store.flow_fields[(0, 3)] = (np.zeros((3, 2, 2, 2), np.float32), {})
-    with pytest.raises(NotImplementedError):
-        decode_warping.warp_bit_images_to_reference(
-            torch.zeros((16, 2, 4, 4)), store=store, tile=0, bits=range(16)
-        )
+    # a stored flow field on that round: its bits take the composed affine
+    # + flow warp (the gather, under the general matrix), as the reference's
+    field = np.random.default_rng(2).normal(0.0, 0.6, (3, 3, 8, 8)).astype(np.float32)
+    attrs = dict(map_stride_zyx_px=[4.0, 12.0, 12.0], map_box_start_xyz_px=[6.0, 6.0, 2.0],
+                 map_box_size_xyz_px=[85.0, 85.0, 9.0], reference_shape_zyx_px=list(images.shape[1:]),
+                 moving_shape_zyx_px=list(images.shape[1:]), sofima_status="ok", valid_flow_vectors=192)
+    ds.save_local_sofima_flow_field(field, tile=0, round=3, **attrs)
+    store.save_local_sofima_flow_field(field, tile=0, round=3, **attrs)
+    want = jwarp.warp_bit_images_to_reference(
+        images, datastore=ds, tile=0, bit_ids=ds.bit_ids,
+        emission_wavelengths_um=ref["bit_wavelengths_um"][:, 1],
+    )
+    flowed = decode_warping.warp_bit_images_to_reference(
+        torch.as_tensor(images), store=store, tile=0, bits=range(images.shape[0])
+    ).numpy()
+    np.testing.assert_allclose(flowed, want, rtol=0, atol=1e-5 * images.max())
+    assert not np.array_equal(flowed[6], got[6])  # the flow moved round 3's bits
+    np.testing.assert_array_equal(np.delete(flowed, [6, 7], axis=0), np.delete(got, [6, 7], axis=0))
 
 
 def test_dog_registration_matches_reference(ref):
