@@ -1,0 +1,50 @@
+"""The check's own proof: the timed path broken underneath, and the
+control in the program's place, each make ``correct`` come out false.
+Small tiles on the CPU; the harness's look for a card is skipped."""
+
+import time
+
+import pytest
+
+from benchmark import harness
+from benchmark.calibrate import readings
+from benchmark.faults import FAULTS
+from benchmark.tests import SMALL
+
+SEED = 2**31 + 21
+
+
+def run(cell: str) -> dict:
+    return harness.run_cell(cell, SEED, 0.1, False, t_start=time.perf_counter(), device="cpu",
+                            config_override=SMALL)
+
+
+def failed(result: dict) -> set:
+    return {k for k, c in result["checks"].items() if not c["value"] <= c["limit"]}
+
+
+def test_sound_run_is_correct():
+    assert run("prod_rigid-nodecon")["correct"] is True
+
+
+@pytest.mark.parametrize("fault, cell, number", [
+    ("registration_unchanged", "prod_rigid-nodecon", "shift_px"),
+    ("rlgc_unchanged", "prod_rigid-decon", "decon_l2"),
+    ("half_the_bits", "prod_rigid-nodecon", "table_miss"),
+    ("altered_answer", "prod_rigid-nodecon", "gene_swaps"),
+])
+def test_a_planted_fault_is_not_correct(fault, cell, number):
+    """A step that returns its state unchanged (registration, RLGC); half
+    of the bit stack replaced by the other half's mean; one answer
+    given another gene where it is produced."""
+    with FAULTS[fault]():
+        result = run(cell)
+    assert result["correct"] is False and number in failed(result)
+
+
+@pytest.mark.parametrize("cell", ["prod_rigid-nodecon", "prod_rigid-decon"])
+def test_control_fails_a_limit(cell):
+    """The reference in bfloat16 (TF32 matmuls) in the program's place."""
+    limits = harness.load_cell(cell)[1]["limits"]
+    (control,) = readings(cell, [], [SEED], device="cpu", config_override=SMALL)
+    assert any(v > limits[k] for k, v in control["gaps"].items())
