@@ -828,9 +828,10 @@ def check_conv_kernel(raw, workdir: Path) -> tuple[dict, list[dict]]:
         n, h, w, kh, kw, cin, co, act = key
         what = f"{kh}x{kw} {cin}->{co} {act} on ({n}, {h}, {w}, {cin})"
         pw = c2.pack_weights(wt)  # as the U-Net's convolutions hold them
-        before = c2.launch_count
+        before = kernel_counts().get("conv2d_same_mma_bf16", 0)
         k = c2.conv2d_same_cuda(x, pw, b, act=act)
-        require(c2.launch_count == before + 1, f"K11 {what} did not take the tensor-core kernel")
+        require(kernel_counts().get("conv2d_same_mma_bf16", 0) == before + 1,
+                f"K11 {what} did not take the tensor-core kernel")
         route = "tensor cores, conv2d_mma.cu"  # every bf16 layer, the narrow ones padded
         p = c2.conv2d_same_plain(x, wt, b, act=act)
         torch.cuda.synchronize()
@@ -1190,11 +1191,10 @@ def solve_bit(raw, *, plain: bool, max_iters: int = PRODUCTION_DECON_ITERS, devi
     iterations, seconds, kernel launches)."""
     import torch
 
-    from merfish3d_tpu_torch.ops import pfft, rlgc
-    from merfish3d_tpu_torch.ops import rlgc_kernels as rk
+    from merfish3d_tpu_torch.ops import rlgc
 
     bit = torch.as_tensor(raw.bits[0, 0], device=device).to(torch.float32)
-    launched = lambda: sum(pfft.launch_count.values()) + sum(rk.launch_count.values())  # noqa: E731
+    launched = lambda: sum(kernel_counts().values())  # noqa: E731
     with plain_versions() if plain else contextlib.nullcontext():
         before = launched()
         torch.cuda.synchronize()
@@ -1254,12 +1254,14 @@ def fiducial_decon_case(raw) -> dict:
 
 
 def kernel_counts() -> dict:
-    """Every DFT and RLGC kernel's launch count, and K8's by route."""
-    from merfish3d_tpu_torch.ops import pfft
-    from merfish3d_tpu_torch.ops import rlgc_kernels as rk
+    """Each kernel's launches since the last reset of the port's tracing
+    registry (on from the start of the smoke), by kernel: K8's by route
+    (``dft_leading.radix``, ``dft_leading.z``), K11's tensor-core and
+    FP32-core kernels apart."""
+    from merfish3d_tpu_torch.utils import profiling
 
-    return {**pfft.launch_count, **{f"dft_leading[{k}]": v for k, v in pfft.leading_route_count.items()},
-            **rk.launch_count}
+    return {name[len("launch."):]: c["total"] for name, c in profiling.snapshot()["counters"].items()
+            if name.startswith("launch.")}
 
 
 def camera_frame_route(image, psf, *, plain: bool, crop_yx=2048, max_iters: int = PRODUCTION_DECON_ITERS,
@@ -1289,7 +1291,7 @@ def camera_frame_route(image, psf, *, plain: bool, crop_yx=2048, max_iters: int 
         after = kernel_counts()
         tiles.append(dict(padded_shape=list(observed.shape), iterations=int(n),
                           seconds=time.perf_counter() - t0,
-                          launches={k: after[k] - before[k] for k in after if after[k] != before[k]}))
+                          launches={k: after[k] - before.get(k, 0) for k in after if after[k] != before.get(k, 0)}))
         return recon, n
 
     rlgc._rlgc_core = recorded
@@ -1804,43 +1806,32 @@ def main() -> int:
 
 
 def reset_launch_counts() -> None:
-    from merfish3d_tpu_torch.ops import conv2d as c2
-    from merfish3d_tpu_torch.ops import decode as dec
-    from merfish3d_tpu_torch.ops import fused_decode as fd
-    from merfish3d_tpu_torch.ops import pfft
-    from merfish3d_tpu_torch.ops import rlgc_kernels as rk
+    """Zero the port's tracing registry (its spans and counters)."""
+    from merfish3d_tpu_torch.utils import profiling
 
-    dec.launch_count = 0
-    c2.launch_count = 0
-    c2.launch_count_direct = 0
-    fd.launch_count_zy = 0
-    fd.launch_count_x_decode = 0
-    for counts in (pfft.launch_count, pfft.leading_route_count, rk.launch_count):
-        for name in counts:
-            counts[name] = 0
+    profiling.reset()
+
+
+# each kernel table row's launch counters
+KERNEL_ROWS = {
+    "decode_chunk_f32 (K3)": ("decode_chunk_f32",),
+    "zy_lowpass_f32 (K1)": ("zy_lowpass_f32",),
+    "x_lowpass_decode_f32 (K2)": ("x_lowpass_decode_f32",),
+    "dft_trailing (K6)": ("dft_trailing",),
+    "dft_middle (K7)": ("dft_middle",),
+    "dft_leading (K8)": ("dft_leading.radix", "dft_leading.z"),
+    "dft_zx (K10)": ("dft_zx",),
+    "dft_mid_conv (K9)": ("dft_mid_conv",),
+    "ratio_kld_f32 (K4)": ("ratio_kld_f32",),
+    "update_select_f32 (K5)": ("update_select_f32",),
+    "conv2d_same (K11)": ("conv2d_same_mma_bf16",),
+}
 
 
 def launch_counts() -> dict:
     """Each kernel's launches since the last reset, by its row name."""
-    from merfish3d_tpu_torch.ops import conv2d as c2
-    from merfish3d_tpu_torch.ops import decode as dec
-    from merfish3d_tpu_torch.ops import fused_decode as fd
-    from merfish3d_tpu_torch.ops import pfft
-    from merfish3d_tpu_torch.ops import rlgc_kernels as rk
-
-    return {
-        "decode_chunk_f32 (K3)": dec.launch_count,
-        "zy_lowpass_f32 (K1)": fd.launch_count_zy,
-        "x_lowpass_decode_f32 (K2)": fd.launch_count_x_decode,
-        "dft_trailing (K6)": pfft.launch_count["dft_trailing"],
-        "dft_middle (K7)": pfft.launch_count["dft_middle"],
-        "dft_leading (K8)": pfft.launch_count["dft_leading"],
-        "dft_zx (K10)": pfft.launch_count["dft_zx"],
-        "dft_mid_conv (K9)": pfft.launch_count["dft_mid_conv"],
-        "ratio_kld_f32 (K4)": rk.launch_count["ratio_kld"],
-        "update_select_f32 (K5)": rk.launch_count["update_select"],
-        "conv2d_same (K11)": c2.launch_count,
-    }
+    counts = kernel_counts()
+    return {row: sum(counts.get(k, 0) for k in keys) for row, keys in KERNEL_ROWS.items()}
 
 
 def smoke(pool, t_start: float) -> int:
@@ -1857,8 +1848,9 @@ def smoke(pool, t_start: float) -> int:
 
     import merfish3d_tpu_torch  # noqa: F401  (sets the full-f32 precision flags)
     from merfish3d_tpu_torch import _build, native
-    from merfish3d_tpu_torch.ops import conv2d as c2
-    from merfish3d_tpu_torch.ops import pfft
+    from merfish3d_tpu_torch.utils import profiling
+
+    profiling.enable()  # the launch counters count only with tracing on
 
     require(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32,
             "TF32 must be off")
@@ -1988,10 +1980,13 @@ def smoke(pool, t_start: float) -> int:
     require(camera["residual_px"] <= SHIFT_TOL_PX, "the camera pair's shift was not recovered")
 
     launches = launch_counts()
-    log(f"launch counts on the main path: {launches}; K8's by route {pfft.leading_route_count}; "
-        f"K11's FP32-core (f32-operand) kernel {c2.launch_count_direct}")
+    counts = kernel_counts()
+    direct = counts.get("conv2d_same_f32", 0)
+    log(f"launch counts on the main path: {launches}; K8's by route radix "
+        f"{counts.get('dft_leading.radix', 0)}, z {counts.get('dft_leading.z', 0)}; "
+        f"K11's FP32-core (f32-operand) kernel {direct}")
     require(all(n > 0 for n in launches.values()), "a kernel of the path never launched")
-    require(c2.launch_count_direct == 0, "a U-Net convolution missed the tensor-core kernel")
+    require(direct == 0, "a U-Net convolution missed the tensor-core kernel")
     require(sorted(launches) == sorted(row["name"] for row in kernels), "a kernel has no row")
 
     # -- 7. each warp class on the card

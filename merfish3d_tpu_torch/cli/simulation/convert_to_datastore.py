@@ -13,6 +13,7 @@ import torch
 from ...datastore.array_store import ArrayStore
 from ...models.psf import make_channel_psfs
 from ...ops.warp import warp_affine
+from ...utils import profiling
 from .convert_simulation_to_experiment import RawExperiment
 
 
@@ -51,39 +52,50 @@ def convert_data(
     order-1 :func:`warp_affine` on ``device``, then clipped and truncated
     to uint16; the decode applies ``inv(chromatic)``, so the calibration
     that undoes the injection is ``A`` itself. The store keeps ``A``."""
-    corrected = np.clip(raw.bits.astype(np.float32), 0, 65535).astype(np.uint16)
-    if inject_chromatic_aberration:
-        if injection_affine is None:
-            injection_affine = make_injection_affine()
-        reference_wl = sorted({float(w[1]) for w in raw.bit_wavelengths_um})[0]
-        for b, wl in enumerate(raw.bit_wavelengths_um):
-            if np.isclose(wl[1], reference_wl):
-                continue
-            for t in range(raw.bits.shape[0]):
-                img = torch.as_tensor(raw.bits[t, b], device=device).to(torch.float32)
-                warped = warp_affine(img, transform_zyx_um=injection_affine,
-                                     spacing_zyx_um=raw.voxel_size_zyx_um, reference_shape=img.shape)
-                corrected[t, b] = warped.clamp(0, 65535).to(torch.int32).cpu().numpy().astype(np.uint16)
-    wavelengths = [raw.fiducial_wavelengths_um[1]] + sorted(
-        {float(w[1]) for w in raw.bit_wavelengths_um}
-    )
-    psfs = make_channel_psfs(
-        wavelengths, na=raw.na, ri=raw.ri, voxel_size_zyx_um=raw.voxel_size_zyx_um,
-        shape_zyx=(15, 15, 15),
-    )
-    store = ArrayStore.from_arrays(
-        gene_ids=raw.gene_ids,
-        codebook_matrix=raw.codebook,
-        voxel_size_zyx_um=raw.voxel_size_zyx_um,
-        round_of_bit=raw.round_of_bit,
-        bit_wavelengths_um=raw.bit_wavelengths_um,
-        stage_positions_zyx_um=raw.stage_positions_zyx_um,
-        corrected=corrected,
-        fiducial_corrected=raw.fiducial,
-        channel_psfs=psfs,
-        na=raw.na,
-        ri=raw.ri,
-    )
+    with profiling.span("datastore.convert"):
+        with profiling.span("datastore.clip"):
+            corrected = np.clip(raw.bits.astype(np.float32), 0, 65535).astype(np.uint16)
+        if inject_chromatic_aberration:
+            if injection_affine is None:
+                injection_affine = make_injection_affine()
+            with profiling.span("datastore.inject"):
+                _inject(raw, corrected, injection_affine, device)
+        wavelengths = [raw.fiducial_wavelengths_um[1]] + sorted(
+            {float(w[1]) for w in raw.bit_wavelengths_um}
+        )
+        with profiling.span("datastore.psf"):
+            psfs = make_channel_psfs(
+                wavelengths, na=raw.na, ri=raw.ri, voxel_size_zyx_um=raw.voxel_size_zyx_um,
+                shape_zyx=(15, 15, 15),
+            )
+        store = ArrayStore.from_arrays(
+            gene_ids=raw.gene_ids,
+            codebook_matrix=raw.codebook,
+            voxel_size_zyx_um=raw.voxel_size_zyx_um,
+            round_of_bit=raw.round_of_bit,
+            bit_wavelengths_um=raw.bit_wavelengths_um,
+            stage_positions_zyx_um=raw.stage_positions_zyx_um,
+            corrected=corrected,
+            fiducial_corrected=raw.fiducial,
+            channel_psfs=psfs,
+            na=raw.na,
+            ri=raw.ri,
+        )
+        profiling.set_run(store.run_id)
     if inject_chromatic_aberration:
         store.injected_chromatic_affine = np.asarray(injection_affine, np.float64)
     return store
+
+
+def _inject(raw: RawExperiment, corrected: np.ndarray, injection_affine, device) -> None:
+    """Warp, in place in ``corrected``, every bit whose emission is not the
+    lowest readout wavelength by ``injection_affine`` on ``device``."""
+    reference_wl = sorted({float(w[1]) for w in raw.bit_wavelengths_um})[0]
+    for b, wl in enumerate(raw.bit_wavelengths_um):
+        if np.isclose(wl[1], reference_wl):
+            continue
+        for t in range(raw.bits.shape[0]):
+            img = profiling.to_device(raw.bits[t, b], device).to(torch.float32)
+            warped = warp_affine(img, transform_zyx_um=injection_affine,
+                                 spacing_zyx_um=raw.voxel_size_zyx_um, reference_shape=img.shape)
+            corrected[t, b] = profiling.to_host(warped.clamp(0, 65535).to(torch.int32)).astype(np.uint16)

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 from ...datastore.array_store import ArrayStore
 from ...pipeline.decoder import PixelDecoder
+from ...utils import profiling
 
 SIM_DEFAULT_MAGNITUDE_THRESHOLD = (0.9, 10.0)
 SIM_3D_DEFAULT_MINIMUM_PIXELS = 28
@@ -30,20 +31,21 @@ def decode_pixels(
     the chromatic affines estimated after each pass and saved to the
     store), then the final decode and filter. Returns the filtered
     decoded-features table."""
-    decoder = PixelDecoder(
-        store,
-        device=device,
-        magnitude_threshold=tuple(magnitude_threshold),
-        minimum_pixels=minimum_pixels,
-        estimate_chromatic_affines=estimate_chromatic_affines,
-    )
-    decoder.optimize_normalization_by_decoding(
-        n_random_tiles=num_tiles,
-        n_iterations=num_iterations,
-        lowpass_sigma=tuple(lowpass_sigma),
-    )
-    return decoder.decode_all_tiles(
-        lowpass_sigma=tuple(lowpass_sigma),
-        filter_method=filter_method,
-        target_misid_rate=target_misid_rate,
-    )
+    with profiling.span("decoder.decode_pixels", run=store.run_id):
+        decoder = PixelDecoder(
+            store,
+            device=device,
+            magnitude_threshold=tuple(magnitude_threshold),
+            minimum_pixels=minimum_pixels,
+            estimate_chromatic_affines=estimate_chromatic_affines,
+        )
+        decoder.optimize_normalization_by_decoding(
+            n_random_tiles=num_tiles,
+            n_iterations=num_iterations,
+            lowpass_sigma=tuple(lowpass_sigma),
+        )
+        return decoder.decode_all_tiles(
+            lowpass_sigma=tuple(lowpass_sigma),
+            filter_method=filter_method,
+            target_misid_rate=target_misid_rate,
+        )

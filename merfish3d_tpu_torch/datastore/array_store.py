@@ -24,6 +24,7 @@ round trip of what was saved.
 
 from __future__ import annotations
 
+import itertools
 import json
 from collections.abc import Mapping
 from typing import Any, Optional
@@ -83,6 +84,10 @@ class _VersionedDict(dict):
     del _bump
 
 
+# run ids: one a store, for the tracing spans of the work done on it
+_RUN_IDS = itertools.count()
+
+
 class ArrayStore:
     def __init__(
         self,
@@ -98,6 +103,7 @@ class ArrayStore:
         na: float = 1.35,
         ri: float = 1.4,
     ):
+        self.run_id = next(_RUN_IDS)
         self.gene_ids = [str(g) for g in gene_ids]
         self.codebook_matrix = np.asarray(codebook_matrix, np.float32)
         self.num_tiles = int(num_tiles)

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
+from ..utils.profiling import count
 
 ACTS = {"none": 0, "relu": 1, "sigmoid": 2}
 _COT = 16  # output channels a block of the f32 kernel (csrc/conv2d.cu)
@@ -36,12 +37,6 @@ K_SLICE = 16  # input channels a K slice of the tensor-core kernel
 # the tensor-core kernel's output-channel blocks, and each one's tile of
 # output pixels (rows, columns) a block (csrc/conv2d_mma.cu ``Cfg``)
 TILES = {16: (8, 64), 32: (8, 64), 64: (8, 32), 128: (8, 16)}
-
-# launches since the last reset (chip_smoke reads them): the tensor-core
-# kernel (bf16 operands, the U-Net's route) and the FP32-core kernel
-launch_count = 0
-launch_count_direct = 0
-
 
 def same_pads(k: int) -> tuple[int, int]:
     """(before, after) of SAME padding for a stride-1 kernel of size k."""
@@ -154,18 +149,17 @@ def conv2d_same_cuda(x, w: Weights, b, *, act: str = "none", out_dtype=None):
     y = torch.empty((n, h, wd, co), dtype=out_dtype, device=x.device)
     lib = _build.kernels()
     stream = _build.stream_handle(x.device)
-    global launch_count, launch_count_direct
     if x.dtype == torch.bfloat16:
         status = lib.conv2d_same_mma_bf16(x.data_ptr(), wt.data_ptr(), b.data_ptr(), y.data_ptr(),
                                           int(out_dtype == torch.float32), n, h, wd, cin, co, kh, kw,
                                           packed.n_block, ACTS[act], stream)
         _build.check(status, "conv2d_same_mma_bf16")
-        launch_count += 1
+        count("launch.conv2d_same_mma_bf16")
     else:
         status = lib.conv2d_same_f32(x.data_ptr(), wt.data_ptr(), b.data_ptr(), y.data_ptr(),
                                      n, h, wd, cin, co, kh, kw, ACTS[act], stream)
         _build.check(status, "conv2d_same_f32")
-        launch_count_direct += 1
+        count("launch.conv2d_same_f32")
     return y
 
 

@@ -15,11 +15,8 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..utils.profiling import count, to_device, to_host
 from .device import as_device_tensor
-
-# launches of the K3 kernel since the last reset (chip_smoke reads it)
-launch_count = 0
-
 
 def normalize_codebook(codebook_matrix: np.ndarray) -> np.ndarray:
     """L2-normalize codeword rows (reference `_normalize_codebook:585-639`)."""
@@ -98,7 +95,6 @@ def check_decode_inputs(traces, codebook_t, background, normalization) -> None:
 
 def decode_chunk_cuda(traces, codebook_t, background, normalization, *, want_scaled=True):
     """Kernel K3 on a CUDA tensor; same contract as :func:`decode_chunk_plain`."""
-    global launch_count
     if traces.device.type != "cuda":
         raise ValueError("decode_chunk_cuda needs CUDA tensors")
     check_decode_inputs(traces, codebook_t, background, normalization)
@@ -118,7 +114,7 @@ def decode_chunk_cuda(traces, codebook_t, background, normalization, *, want_sca
         _build.stream_handle(traces.device),
     )
     _build.check(status, "decode_chunk_f32")
-    launch_count += 1
+    count("launch.decode_chunk_f32")
     return best, dist, mag, scaled
 
 
@@ -197,9 +193,9 @@ def decode_volume(
     ``cuda`` for a host array."""
     vol = as_device_tensor(bit_volume, device)
     dev = vol.device
-    cb_t = torch.as_tensor(normalize_codebook(codebook_matrix).T.copy(), device=dev)
-    bg = torch.as_tensor(np.asarray(background, np.float32), device=dev)
-    norm = torch.as_tensor(np.asarray(normalization, np.float32), device=dev)
+    cb_t = to_device(normalize_codebook(codebook_matrix).T.copy(), dev)
+    bg = to_device(np.asarray(background, np.float32), dev)
+    norm = to_device(np.asarray(normalization, np.float32), dev)
     bits, nz, ny, nx = vol.shape
     decoded = np.empty((nz, ny, nx), np.int16)
     mag = np.empty((nz, ny, nx), np.float16)
@@ -213,9 +209,9 @@ def decode_volume(
             distance_threshold=float(distance_threshold),
             return_scaled=return_scaled,
         )
-        decoded[z0:z1] = d.cpu().numpy()
-        mag[z0:z1] = m.cpu().numpy()
-        dist[z0:z1] = di.cpu().numpy()
+        decoded[z0:z1] = to_host(d)
+        mag[z0:z1] = to_host(m)
+        dist[z0:z1] = to_host(di)
         if scaled is not None:
-            scaled[:, z0:z1] = sc.cpu().numpy()
+            scaled[:, z0:z1] = to_host(sc)
     return decoded, mag, dist, scaled

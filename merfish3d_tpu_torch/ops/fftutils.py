@@ -37,6 +37,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.profiling import to_device
 from . import pfft
 from .filters import symmetric_pad_index
 
@@ -100,7 +101,7 @@ def linear_fft_pad_width(image_shape, psf_shape, pad_yx: bool = True) -> PadWidt
 def _gather(arr: torch.Tensor, maps) -> torch.Tensor:
     """arr[maps[0][:, None, None], maps[1][None, :, None], maps[2][None, None, :]]:
     one gather over the trailing three axes."""
-    iz, iy, ix = (torch.as_tensor(m, device=arr.device) for m in maps)
+    iz, iy, ix = (to_device(m, arr.device) for m in maps)
     return arr[..., iz[:, None, None], iy[None, :, None], ix[None, None, :]]
 
 

@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.profiling import to_device
+
 
 def _gaussian_kernel1d(sigma: float, truncate: float = 4.0) -> np.ndarray:
     """Matches scipy.ndimage.gaussian_filter1d kernel construction."""
@@ -28,9 +30,7 @@ def symmetric_pad_index(n: int, before: int, after: int) -> np.ndarray:
 
 
 def pad_symmetric(vol: torch.Tensor, axis: int, before: int, after: int) -> torch.Tensor:
-    idx = torch.as_tensor(
-        symmetric_pad_index(vol.shape[axis], before, after), device=vol.device
-    )
+    idx = to_device(symmetric_pad_index(vol.shape[axis], before, after), vol.device)
     return vol.index_select(axis, idx)
 
 

@@ -35,6 +35,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils import profiling
+from ..utils.profiling import read_scalar, to_device, to_host
 from .device import as_device_tensor
 from .warp import (
     _affine_flow_warp_core,
@@ -134,19 +136,19 @@ def _patch_xcorr_flow(
     # patch-constant geometry: signed displacement of each bin, the
     # plausible-displacement mask (<= a quarter patch a side), coordinate
     # ramps for the periodic neighbourhoods
-    signed = [torch.as_tensor(np.fft.fftfreq(n) * n, dtype=torch.float32, device=dev) for n in patch_size]
+    signed = [to_device((np.fft.fftfreq(n) * n).astype(np.float32), dev) for n in patch_size]
     disp_ok = np.ones(patch_size, bool)
     for ax, n in enumerate(patch_size):
         shape = [1, 1, 1]
         shape[ax] = n
         disp_ok = disp_ok & (np.abs(np.fft.fftfreq(n) * n).reshape(shape) <= n // 4)
-    disp_ok = torch.as_tensor(disp_ok, device=dev)
+    disp_ok = to_device(disp_ok, dev)
     ramps = [
         torch.arange(n, device=dev).reshape([1] + [n if a == ax else 1 for a in range(3)])
         for ax, n in enumerate(patch_size)
     ]
     dims = (1, 2, 3)
-    neg_inf = torch.tensor(-torch.inf, device=dev)
+    neg_inf = to_device(np.float32(-np.inf), dev)
     flows, ratios, sharps = [], [], []
     lin = torch.arange(n_patches, device=dev)
     for s in range(0, n_patches, max(1, int(batch_size))):
@@ -207,9 +209,9 @@ def _patch_xcorr_flow(
         ratios.append(ratio)
         sharps.append(sharp)
     return (
-        torch.cat(flows).cpu().numpy().reshape(*lattice_shape, 3),
-        torch.cat(ratios).cpu().numpy().reshape(lattice_shape),
-        torch.cat(sharps).cpu().numpy().reshape(lattice_shape),
+        to_host(torch.cat(flows)).reshape(*lattice_shape, 3),
+        to_host(torch.cat(ratios)).reshape(lattice_shape),
+        to_host(torch.cat(sharps)).reshape(lattice_shape),
     )
 
 
@@ -261,7 +263,8 @@ def _relax_field(flow: torch.Tensor, measured: torch.Tensor, valid: torch.Tensor
             total = total + torch.where(ok > 0, torch.roll(f, off, dims=ax), 0.0)
         avg = torch.where(count > 0, total / torch.clamp(count, min=1.0), f)
         new = data_weight * measured + keep * avg
-        delta = float(torch.max(torch.abs(new - f)))
+        delta = read_scalar(torch.max(torch.abs(new - f)))
+        profiling.count("flow.sweeps")
         f = new
         it += 1
     return f, it
@@ -297,76 +300,81 @@ def estimate_sofima_flow_field_xyz_px(
     fx) float32, channels X, Y, Z, and the metadata the datastore keeps
     beside it). Tensors stay on their device; anything else goes to
     ``device`` (the card by default)."""
-    cfg = config
-    ref = as_device_tensor(reference, device).to(torch.float32)
-    moving_t = as_device_tensor(moving, ref.device).to(torch.float32)
-    ref_shape = tuple(int(v) for v in ref.shape)
-    patch, stride = cfg.resolve_patch_and_stride(ref_shape)
-    starts = [_lattice_starts(s, p, st) for s, p, st in zip(ref_shape, patch, stride)]
-    lattice_shape = tuple(len(s) for s in starts)
-    box_start_zyx = [float(s[0] + p / 2.0) for s, p in zip(starts, patch)]
-    meta = dict(
-        map_stride_zyx_px=[float(s) for s in stride],
-        map_box_start_xyz_px=[box_start_zyx[2], box_start_zyx[1], box_start_zyx[0]],
-        map_box_size_xyz_px=[float((lattice_shape[a] - 1) * stride[a] + 1) for a in (2, 1, 0)],
-        reference_shape_zyx_px=list(ref_shape),
-        moving_shape_zyx_px=[int(v) for v in moving_t.shape],
-    )
-    total_xyz = np.zeros((3, *lattice_shape), np.float32)
-    current = moving_t
-    best_valid_count = 0
-    for iteration in range(max(1, cfg.residual_iterations)):
-        flow_zyx, ratios, sharps = _patch_xcorr_flow(
-            ref, current, patch_size=patch, strides=stride, batch_size=int(cfg.batch_size),
-            peak_min_distance=int(cfg.peak_min_distance), peak_radius=int(cfg.peak_radius),
-            max_masked=float(cfg.max_masked), normalization_epsilon=float(cfg.normalization_epsilon),
+    with profiling.span("flow.estimate"):
+        cfg = config
+        ref = as_device_tensor(reference, device).to(torch.float32)
+        moving_t = as_device_tensor(moving, ref.device).to(torch.float32)
+        ref_shape = tuple(int(v) for v in ref.shape)
+        patch, stride = cfg.resolve_patch_and_stride(ref_shape)
+        starts = [_lattice_starts(s, p, st) for s, p, st in zip(ref_shape, patch, stride)]
+        lattice_shape = tuple(len(s) for s in starts)
+        box_start_zyx = [float(s[0] + p / 2.0) for s, p in zip(starts, patch)]
+        meta = dict(
+            map_stride_zyx_px=[float(s) for s in stride],
+            map_box_start_xyz_px=[box_start_zyx[2], box_start_zyx[1], box_start_zyx[0]],
+            map_box_size_xyz_px=[float((lattice_shape[a] - 1) * stride[a] + 1) for a in (2, 1, 0)],
+            reference_shape_zyx_px=list(ref_shape),
+            moving_shape_zyx_px=[int(v) for v in moving_t.shape],
         )
-        valid = _clean_flow(flow_zyx, ratios, sharps, cfg)
-        valid_count = int(valid.sum())
-        # the best pass sets the status: a residual pass that finds nothing
-        # fresh after a productive one is still a success
-        best_valid_count = max(best_valid_count, valid_count)
-        if valid_count == 0:
-            break
-        med = np.median(flow_zyx[valid], axis=0)
-        init = np.broadcast_to(med, flow_zyx.shape).astype(np.float32)
-        relaxed, _ = _relax_field(
-            torch.as_tensor(init, device=ref.device),
-            torch.as_tensor(flow_zyx.astype(np.float32), device=ref.device),
-            torch.as_tensor(valid, device=ref.device),
-            smoothness=cfg.relax_smoothness, iterations=cfg.relax_iterations, tolerance=cfg.relax_tolerance,
-        )
-        relaxed = relaxed.cpu().numpy()
-        z_med = float(np.median(relaxed[..., 0]))
-        relaxed[..., 0] = np.clip(
-            relaxed[..., 0],
-            z_med - cfg.max_local_z_displacement_px,
-            z_med + cfg.max_local_z_displacement_px,
-        )
-        residual_xyz = np.stack([relaxed[..., 2], relaxed[..., 1], relaxed[..., 0]]).astype(np.float32)
-        if iteration == 0:
-            total_xyz = residual_xyz
-        else:
-            total_xyz = _compose_flow_fields_same_grid(total_xyz, residual_xyz, np.asarray(stride, np.float64))
-        if iteration + 1 < cfg.residual_iterations:
-            stride_f = np.asarray(stride, np.float32)
-            box_f = np.asarray(box_start_zyx, np.float32)
-            k_ranges = (
-                _separable_flow_bounds(np.eye(3, dtype=np.float32), np.zeros(3, np.float32), total_xyz,
-                                       ref_shape)
-                if tuple(moving_t.shape) == ref_shape else None
-            )
-            flow_t = torch.as_tensor(total_xyz, device=ref.device)
-            if k_ranges is not None:
-                current = _flow_warp_separable_core(
-                    moving_t[None], flow_t[None], np.ones((1, 3), np.float32), np.zeros((1, 3), np.float32),
-                    stride_f[None], box_f[None], k_ranges=k_ranges, out_shape=ref_shape,
-                )[0]
-            else:
-                current = _affine_flow_warp_core(
-                    moving_t, flow_t, np.eye(3, dtype=np.float32), np.zeros(3, np.float32), stride_f, box_f,
-                    reference_shape=ref_shape,
+        total_xyz = np.zeros((3, *lattice_shape), np.float32)
+        current = moving_t
+        best_valid_count = 0
+        for iteration in range(max(1, cfg.residual_iterations)):
+            with profiling.span("flow.xcorr"):
+                flow_zyx, ratios, sharps = _patch_xcorr_flow(
+                    ref, current, patch_size=patch, strides=stride, batch_size=int(cfg.batch_size),
+                    peak_min_distance=int(cfg.peak_min_distance), peak_radius=int(cfg.peak_radius),
+                    max_masked=float(cfg.max_masked), normalization_epsilon=float(cfg.normalization_epsilon),
                 )
-    meta["sofima_status"] = "ok" if best_valid_count else "no_valid_vectors"
-    meta["valid_flow_vectors"] = best_valid_count
-    return total_xyz.astype(np.float32), meta
+            with profiling.span("flow.clean"):
+                valid = _clean_flow(flow_zyx, ratios, sharps, cfg)
+            valid_count = int(valid.sum())
+            # the best pass sets the status: a residual pass that finds nothing
+            # fresh after a productive one is still a success
+            best_valid_count = max(best_valid_count, valid_count)
+            if valid_count == 0:
+                break
+            med = np.median(flow_zyx[valid], axis=0)
+            init = np.broadcast_to(med, flow_zyx.shape).astype(np.float32)
+            with profiling.span("flow.relax"):
+                relaxed, _ = _relax_field(
+                    to_device(init, ref.device),
+                    to_device(flow_zyx.astype(np.float32), ref.device),
+                    to_device(valid, ref.device),
+                    smoothness=cfg.relax_smoothness, iterations=cfg.relax_iterations, tolerance=cfg.relax_tolerance,
+                )
+                relaxed = to_host(relaxed)
+            z_med = float(np.median(relaxed[..., 0]))
+            relaxed[..., 0] = np.clip(
+                relaxed[..., 0],
+                z_med - cfg.max_local_z_displacement_px,
+                z_med + cfg.max_local_z_displacement_px,
+            )
+            residual_xyz = np.stack([relaxed[..., 2], relaxed[..., 1], relaxed[..., 0]]).astype(np.float32)
+            if iteration == 0:
+                total_xyz = residual_xyz
+            else:
+                total_xyz = _compose_flow_fields_same_grid(total_xyz, residual_xyz, np.asarray(stride, np.float64))
+            if iteration + 1 < cfg.residual_iterations:
+                with profiling.span("flow.warp"):
+                    stride_f = np.asarray(stride, np.float32)
+                    box_f = np.asarray(box_start_zyx, np.float32)
+                    k_ranges = (
+                        _separable_flow_bounds(np.eye(3, dtype=np.float32), np.zeros(3, np.float32), total_xyz,
+                                               ref_shape)
+                        if tuple(moving_t.shape) == ref_shape else None
+                    )
+                    flow_t = to_device(total_xyz, ref.device)
+                    if k_ranges is not None:
+                        current = _flow_warp_separable_core(
+                            moving_t[None], flow_t[None], np.ones((1, 3), np.float32), np.zeros((1, 3), np.float32),
+                            stride_f[None], box_f[None], k_ranges=k_ranges, out_shape=ref_shape,
+                        )[0]
+                    else:
+                        current = _affine_flow_warp_core(
+                            moving_t, flow_t, np.eye(3, dtype=np.float32), np.zeros(3, np.float32), stride_f, box_f,
+                            reference_shape=ref_shape,
+                        )
+        meta["sofima_status"] = "ok" if best_valid_count else "no_valid_vectors"
+        meta["valid_flow_vectors"] = best_valid_count
+        return total_xyz.astype(np.float32), meta

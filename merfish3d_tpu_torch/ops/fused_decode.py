@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..utils.profiling import count, to_device, to_host
 from .cc import SparseIntensity
 from .device import as_device_tensor
 from .decode import (
@@ -34,11 +35,6 @@ from .decode import (
     pack_codebook,
 )
 from .filters import _gaussian_kernel1d, gaussian_lowpass, symmetric_pad_index
-
-# launches since the last reset (chip_smoke reads them)
-launch_count_zy = 0  # K1
-launch_count_x_decode = 0  # K2
-
 
 def _kernel_or_identity(sigma: float) -> np.ndarray:
     if sigma and sigma > 0:
@@ -82,7 +78,7 @@ def _check_volume(volume: torch.Tensor, *, kernel: bool) -> None:
 
 def _index_map(n: int, kernel: np.ndarray, device) -> torch.Tensor:
     r = (len(kernel) - 1) // 2
-    return torch.as_tensor(symmetric_pad_index(n, r, r).astype(np.int32), device=device)
+    return to_device(symmetric_pad_index(n, r, r).astype(np.int32), device)
 
 
 @functools.lru_cache(maxsize=64)
@@ -90,7 +86,7 @@ def _x_taps(nx: int, sigma_x: float, device: torch.device) -> tuple[torch.Tensor
     """K2's x taps and symmetric pad index map on ``device``, uploaded once
     a row length and sigma (each upload from host memory costs a copy)."""
     kx = _kernel_or_identity(sigma_x)
-    return torch.as_tensor(kx, device=device), _index_map(nx, kx, device)
+    return to_device(kx, device), _index_map(nx, kx, device)
 
 
 def _require_cuda(t: torch.Tensor, name: str) -> None:
@@ -118,10 +114,10 @@ def _zy_tables(nz: int, ny: int, sigma_z: float, sigma_y: float, device: torch.d
     kz, ky = _kernel_or_identity(sigma_z), _kernel_or_identity(sigma_y)
     fold = nz <= 64
     return ZyTables(
-        wz=torch.as_tensor(z_fold_matrix(kz, nz), device=device) if fold else None,
-        kz=None if fold else torch.as_tensor(kz, device=device),
+        wz=to_device(z_fold_matrix(kz, nz), device) if fold else None,
+        kz=None if fold else to_device(kz, device),
         zmap=None if fold else _index_map(nz, kz, device),
-        ky=torch.as_tensor(ky, device=device),
+        ky=to_device(ky, device),
         ymap=_index_map(ny, ky, device),
         taps_z=len(kz),
     )
@@ -151,7 +147,6 @@ def zy_lowpass_cuda(volume: torch.Tensor, sigma) -> torch.Tensor:
     Up to 64 planes the z pass is the folded (Z, Z) matrix; deeper volumes
     take the kernel's direct z-tap path. The tables come from
     :func:`_zy_tables`, so a repeated shape uploads nothing."""
-    global launch_count_zy
     _require_cuda(volume, "zy_lowpass_cuda")
     _check_volume(volume, kernel=True)
     bits, nz, ny, nx = volume.shape
@@ -163,7 +158,7 @@ def zy_lowpass_cuda(volume: torch.Tensor, sigma) -> torch.Tensor:
         out.data_ptr(), _build.stream_handle(volume.device),
     )
     _build.check(status, "zy_lowpass_f32")
-    launch_count_zy += 1
+    count("launch.zy_lowpass_f32")
     return out
 
 
@@ -173,7 +168,6 @@ def x_lowpass_decode_cuda(
 ):
     """Kernel K2 on the output of K1 (the codebook uploaded as
     :func:`~.decode.pack_codebook` lays it out)."""
-    global launch_count_x_decode
     _require_cuda(inter, "x_lowpass_decode_cuda")
     _check_volume(inter, kernel=True)
     bits, nz, ny, nx = inter.shape
@@ -194,7 +188,7 @@ def x_lowpass_decode_cuda(
         dist.data_ptr(), scaled.data_ptr(), _build.stream_handle(dev),
     )
     _build.check(status, "x_lowpass_decode_f32")
-    launch_count_x_decode += 1
+    count("launch.x_lowpass_decode_f32")
     return decoded, mag, dist, scaled
 
 
@@ -262,8 +256,8 @@ def gather_values(volume: torch.Tensor, lin: np.ndarray) -> np.ndarray:
     """(bits, n) float32 host values of a (bits, Z, Y, X) device volume at
     flat voxel indices — only the foreground crosses to the host."""
     flat = volume.reshape(volume.shape[0], -1)
-    idx = torch.as_tensor(lin, dtype=torch.int64, device=volume.device)
-    return flat.index_select(1, idx).to(torch.float32).cpu().numpy()
+    idx = to_device(np.asarray(lin, np.int64), volume.device)
+    return to_host(flat.index_select(1, idx).to(torch.float32))
 
 
 def fused_decode_volume(
@@ -296,9 +290,9 @@ def fused_decode_volume(
     vol = as_device_tensor(bit_volume, device).to(torch.float32).contiguous()
     dev = vol.device
     bits, nz, ny, nx = vol.shape
-    cb_t = torch.as_tensor(normalize_codebook(codebook_matrix).T.copy(), device=dev)
-    bg = torch.as_tensor(np.asarray(background, np.float32), device=dev)
-    norm = torch.as_tensor(np.asarray(normalization, np.float32), device=dev)
+    cb_t = to_device(normalize_codebook(codebook_matrix).T.copy(), dev)
+    bg = to_device(np.asarray(background, np.float32), dev)
+    norm = to_device(np.asarray(normalization, np.float32), dev)
     kw = dict(
         sigma=tuple(float(s) for s in sigma),
         magnitude_threshold=tuple(magnitude_threshold),
@@ -307,13 +301,13 @@ def fused_decode_volume(
     gather = scaled_as == "gather"
     if 3 * vol.numel() * 4 <= memory_budget_bytes:
         d, m, di, s = fused_lowpass_decode(vol, cb_t, bg, norm, **kw)
-        decoded = d.cpu().numpy()
+        decoded = to_host(d)
         if gather:
             lin = np.flatnonzero(decoded >= 0)
-            return decoded, m.cpu().numpy(), di.cpu().numpy(), SparseIntensity(
+            return decoded, to_host(m), to_host(di), SparseIntensity(
                 lin, gather_values(s, lin)
             )
-        return decoded, m.cpu().numpy(), di.cpu().numpy(), s.cpu().numpy()
+        return decoded, to_host(m), to_host(di), to_host(s)
 
     ry = int(4.0 * sigma[1] + 0.5) if sigma[1] > 0 else 0
     decoded = np.empty((nz, ny, nx), np.int16)
@@ -329,10 +323,10 @@ def fused_decode_volume(
             vol[:, :, ys:ye].contiguous(), cb_t, bg, norm, **kw
         )
         lo, hi = y0 - ys, y1 - ys
-        d_host = d.cpu().numpy()
+        d_host = to_host(d)
         decoded[:, y0:y1] = d_host[:, lo:hi]
-        mag[:, y0:y1] = m[:, lo:hi].cpu().numpy()
-        dist[:, y0:y1] = di[:, lo:hi].cpu().numpy()
+        mag[:, y0:y1] = to_host(m[:, lo:hi])
+        dist[:, y0:y1] = to_host(di[:, lo:hi])
         if gather:
             f = np.flatnonzero(d_host[:, lo:hi] >= 0)
             if f.size:
@@ -342,7 +336,7 @@ def fused_decode_volume(
                 fg_vals.append(gather_values(s, slab_lin))
                 fg_lins.append((z_f * ny + y0 + y_f) * nx + x_f)
         else:
-            scaled[:, :, y0:y1] = s[:, :, lo:hi].cpu().numpy()
+            scaled[:, :, y0:y1] = to_host(s[:, :, lo:hi])
     if not gather:
         return decoded, mag, dist, scaled
     if fg_lins:

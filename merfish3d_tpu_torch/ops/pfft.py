@@ -46,18 +46,11 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..utils.profiling import count, to_device
 
 _LANE = 128
 _MAX_N1 = 24
 _ZX_TY = 8
-
-# launches of each kernel since the last reset (chip_smoke reads them)
-launch_count = {
-    "dft_trailing": 0, "dft_middle": 0, "dft_leading": 0, "dft_zx": 0, "dft_mid_conv": 0,
-}
-# K8's launches by route (:func:`leading_route`), also counted in launch_count
-leading_route_count = {"radix": 0, "z": 0}
-
 
 # ------------------------------------------------------------ predicates
 def supported_ct_axis(n: int) -> bool:
@@ -238,7 +231,7 @@ def _on_device(kind: str, n, inverse: bool, device) -> tuple[torch.Tensor, ...]:
         else:
             tables = (dense_z_table(n, inverse),)
         _device_consts[key] = tuple(
-            torch.as_tensor(np.ascontiguousarray(t), device=device) for t in tables
+            to_device(np.ascontiguousarray(t), device) for t in tables
         )
     return _device_consts[key]
 
@@ -252,12 +245,12 @@ def axis_plain(xr, xi, axis: int, inverse: bool, real_output: bool):
     permuted = not np.array_equal(perm, np.arange(len(perm)))
     if inverse:
         if permuted:
-            z = z.index_select(axis, torch.as_tensor(np.argsort(perm), device=z.device))
+            z = z.index_select(axis, to_device(np.argsort(perm), z.device))
         z = torch.fft.ifft(z, dim=axis)
     else:
         z = torch.fft.fft(z, dim=axis)
         if permuted:
-            z = z.index_select(axis, torch.as_tensor(perm, device=z.device))
+            z = z.index_select(axis, to_device(perm, z.device))
     yi = None if (inverse and real_output) else z.imag.contiguous()
     return z.real.contiguous(), yi
 
@@ -317,8 +310,9 @@ def _ptr(t) -> int | None:
 
 
 def _launched(status: int, name: str) -> None:
+    """Raise on a failed launch, else count it as ``launch.<name>``."""
     _build.check(status, name)
-    launch_count[name] += 1
+    count("launch." + name)
 
 
 def dft_trailing_cuda(xr, xi=None, *, inverse=False, real_output=False):
@@ -372,8 +366,7 @@ def dft_leading_cuda(xr, xi=None, *, inverse=False, real_output=False):
         xr.data_ptr(), _ptr(xi), yr.data_ptr(), _ptr(yi), w.data_ptr(), n, radix, w.shape[-1],
         xr[0].numel(), int(bool(inverse)), _build.stream_handle(xr.device),
     )
-    _launched(status, "dft_leading")
-    leading_route_count[route] += 1
+    _launched(status, f"dft_leading.{route}")
     return yr, yi
 
 

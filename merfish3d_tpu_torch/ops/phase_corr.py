@@ -22,6 +22,7 @@ import math
 import numpy as np
 import torch
 
+from ..utils.profiling import read_list, read_scalar, to_device
 from .fftutils import c_conj, c_mul, fftn_spec, ifftn_spec, spectrum_freqs
 
 
@@ -48,7 +49,7 @@ def _integer_peak(corr_abs: torch.Tensor) -> torch.Tensor:
     """Argmax of |ifft| unwrapped to signed shifts (the first maximum, as
     ``jnp.argmax``)."""
     idx = _unravel(torch.argmax(corr_abs), corr_abs.shape)
-    shape = torch.as_tensor(corr_abs.shape, device=corr_abs.device)
+    shape = to_device(np.asarray(corr_abs.shape, np.int64), corr_abs.device)
     return torch.where(idx > torch.div(shape, 2, rounding_mode="floor"), idx - shape, idx)
 
 
@@ -63,7 +64,7 @@ def _upsampled_dft(cross_power_pair, shifts: torch.Tensor, upsample_factor: int)
     dev = dr.device
     for axis in range(dr.ndim):
         n = dr.shape[0]  # current leading axis (axes roll as we go)
-        freqs = torch.as_tensor(spectrum_freqs(n), device=dev)
+        freqs = to_device(spectrum_freqs(n), dev)
         sample_pos = (torch.arange(region, dtype=torch.float32, device=dev) - dftshift) / up
         sample_pos = sample_pos + shifts[axis]
         # kernel[r, f] = exp(2πi freqs[f] sample_pos[r])
@@ -81,7 +82,7 @@ def _upsampled_dft(cross_power_pair, shifts: torch.Tensor, upsample_factor: int)
 def _roll_with_validity(moving: torch.Tensor, shift: torch.Tensor):
     """Roll by the rounded shift (half to even) and build the wrap-validity
     mask."""
-    ishift = [int(v) for v in torch.round(shift).to(torch.int64).tolist()]
+    ishift = [int(v) for v in read_list(torch.round(shift).to(torch.int64))]
     rolled = torch.roll(moving, shifts=ishift, dims=tuple(range(moving.ndim)))
     mask = torch.ones(moving.shape, dtype=torch.float32, device=moving.device)
     for ax, s in enumerate(ishift):
@@ -125,18 +126,18 @@ def phase_cross_correlation(
 
     if disambiguate:
         # the 2^d sign-wrap candidates: shift, or shift -/+ size per axis
-        size = torch.as_tensor(fixed.shape, dtype=torch.float32, device=fixed.device)
+        size = to_device(np.asarray(fixed.shape, np.float32), fixed.device)
         wrapped = torch.where(shift >= 0, shift - size, shift + size)
         cands = torch.stack([
             torch.where(
-                torch.as_tensor([(bits >> ax) & 1 for ax in range(fixed.ndim)], device=fixed.device)
+                to_device(np.asarray([(bits >> ax) & 1 for ax in range(fixed.ndim)], np.int64), fixed.device)
                 > 0, wrapped, shift,
             )
             for bits in range(2**fixed.ndim)
         ])
         # scored one after another: the rolled volumes never coexist
         nccs = torch.stack([_masked_ncc_for_shift(fixed, moving, c) for c in cands])
-        shift = cands[torch.argmax(nccs)]
+        shift = cands[read_scalar(torch.argmax(nccs))]
 
     if upsample_factor > 1:
         shift = torch.round(shift * upsample_factor) / upsample_factor

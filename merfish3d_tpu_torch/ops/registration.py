@@ -17,6 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.profiling import to_device, to_host
+from .device import as_device_tensor
 from .phase_corr import phase_cross_correlation
 from .warp import translate_volume
 
@@ -46,9 +48,8 @@ def _register_rounds_program(
     fixed_crop = fixed[interior]
     # the applied stage-1 translation is clamped so rolled wrap-around
     # stays inside the cropped margin; stage 2 measures the remainder
-    lim = torch.as_tensor(
-        [my - 1 if my else float(ny), mx - 1 if mx else float(nx)],
-        dtype=torch.float32, device=fixed.device,
+    lim = to_device(
+        np.asarray([my - 1 if my else float(ny), mx - 1 if mx else float(nx)], np.float32), fixed.device
     )
     zero = torch.zeros(1, dtype=torch.float32, device=fixed.device)
     shifts, warped = [], []
@@ -88,13 +89,13 @@ def register_rounds_to_fixed(
     resampled into the fixed frame, left on the device (else None).
     Arrays are moved to ``device``; tensors already there pass through
     without a copy."""
-    movings = torch.as_tensor(movings, device=device)
-    fixed = torch.as_tensor(fixed, device=device)
+    movings = as_device_tensor(movings, device)
+    fixed = as_device_tensor(fixed, device)
     if movings.ndim != 4 or tuple(movings.shape[1:]) != tuple(fixed.shape):
         raise ValueError(f"expected (R, *{tuple(fixed.shape)}) movings, got {tuple(movings.shape)}")
     spacing = np.asarray(spacing_zyx_um, dtype=np.float32)
     shifts, warped = _register_rounds_program(fixed, movings, upsample_factor, return_warped)
-    shifts_np = shifts.cpu().numpy()
+    shifts_np = to_host(shifts)
     transforms = np.tile(np.eye(4, dtype=np.float32), (len(shifts_np), 1, 1))
     transforms[:, :3, 3] = shifts_np * spacing
     return transforms, (torch.stack(warped) if warped is not None else None)
@@ -107,7 +108,7 @@ def register_pair_to_fixed(
     if tuple(fixed.shape) != tuple(moving.shape) or fixed.ndim != 3:
         raise ValueError(f"expected matching 3D shapes, got {fixed.shape} vs {moving.shape}")
     transforms, _ = register_rounds_to_fixed(
-        fixed, torch.as_tensor(moving, device=device)[None],
+        fixed, as_device_tensor(moving, device)[None],
         spacing_zyx_um=spacing_zyx_um, upsample_factor=upsample_factor, device=device,
     )
     return transforms[0]

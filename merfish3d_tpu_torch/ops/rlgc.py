@@ -43,6 +43,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..utils import profiling
 from .device import as_device_tensor
 from .fftutils import (
     axis_linear_fft_padding,
@@ -134,7 +135,7 @@ class _Solve:
 def _prepare_solve(shape, psf, pad_width, device) -> _Solve:
     mask = observed_region_mask(shape, pad_width, device=device)
     num_pixels = float(np.prod([s - b - a for s, (b, a) in zip(shape, pad_width)]))
-    otf = fftn_spec(torch.as_tensor(pad_psf(psf, shape), device=device))
+    otf = fftn_spec(profiling.to_device(pad_psf(psf, shape), device))
     otf_t = c_conj(otf)
     otf2 = c_mul(otf, otf_t)
     update_norm = torch.clamp(fft_conv_full(mask, otf_t), min=1e-6)
@@ -238,16 +239,19 @@ def _rlgc_core(
     solve = solve or _prepare_solve(observed.shape, psf, pad_width, observed.device)
     slot = _load(0, observed, solve)
     while not slot.done and slot.it < max_iters:
-        hu = fft_conv_full(slot.recon, solve.otf)
-        r1, r2, klds, restore = _ratios_and_restore(slot, hu, split_fn, seed, pad_width, safe_mode)
-        del hu
-        gr, gi = fft_conv_spec(r1, r2, solve.otf_t)
-        del r1, r2
-        ht1, ht2 = _split_ht(gr, gi, solve.update_norm)
-        del gr, gi
-        consensus = fft_conv_full((ht1 - 1.0) * (ht2 - 1.0), solve.otf2)
-        new_recon, new_prev, record = _update(consensus, slot, ht1 + ht2, restore, klds, pad_width)
-        _advance(slot, new_recon, new_prev, record.tolist(), solve.num_pixels, limit, max_delta)
+        with profiling.span("rlgc.step"):
+            hu = fft_conv_full(slot.recon, solve.otf)
+            r1, r2, klds, restore = _ratios_and_restore(slot, hu, split_fn, seed, pad_width, safe_mode)
+            del hu
+            gr, gi = fft_conv_spec(r1, r2, solve.otf_t)
+            del r1, r2
+            ht1, ht2 = _split_ht(gr, gi, solve.update_norm)
+            del gr, gi
+            consensus = fft_conv_full((ht1 - 1.0) * (ht2 - 1.0), solve.otf2)
+            new_recon, new_prev, record = _update(consensus, slot, ht1 + ht2, restore, klds, pad_width)
+            with profiling.span("rlgc.read"):
+                values = profiling.read_list(record)
+            _advance(slot, new_recon, new_prev, values, solve.num_pixels, limit, max_delta)
     return slot.recon, slot.it
 
 
@@ -294,37 +298,40 @@ def _rlgc_queue_core(
     queued = min(2, n_vol)
     slots: list = [load(v) for v in range(queued)] + [None] * (2 - queued)
     while any(s is not None for s in slots):
-        hus = _conv_pair(*[None if s is None else s.recon for s in slots], solve.otf)
-        per_slot = []
-        for slot, hu in zip(slots, hus):
-            if slot is None:
-                per_slot.append(None)
-                continue
-            r1, r2, klds, restore = _ratios_and_restore(
-                slot, hu, split_fn, seeds[slot.vol], pad_width, safe_mode
-            )
-            gr, gi = fft_conv_spec(r1, r2, solve.otf_t)
-            del r1, r2
-            ht1, ht2 = _split_ht(gr, gi, solve.update_norm)
-            per_slot.append((ht1 + ht2, (ht1 - 1.0) * (ht2 - 1.0), restore, klds))
-        del hus
-        cons = _conv_pair(*[None if p is None else p[1] for p in per_slot], solve.otf2)
-        steps, records = [], []
-        for slot, p, consensus in zip(slots, per_slot, cons):
-            if slot is None:
-                continue
-            new_recon, new_prev, record = _update(consensus, slot, p[0], p[2], p[3], pad_width)
-            steps.append((slot, new_recon, new_prev))
-            records.append(record)
-        del per_slot, cons
-        for (slot, new_recon, new_prev), record in zip(steps, torch.stack(records).tolist()):
-            _advance(slot, new_recon, new_prev, record, solve.num_pixels, limit, max_delta)
-        for i, slot in enumerate(slots):
-            if slot is not None and (slot.done or slot.it >= max_iters):
-                out[slot.vol] = remove_padding_zyx(slot.recon, pad_width)
-                iters[slot.vol] = slot.it
-                slots[i] = load(queued) if queued < n_vol else None
-                queued += 1
+        with profiling.span("rlgc.step"):
+            hus = _conv_pair(*[None if s is None else s.recon for s in slots], solve.otf)
+            per_slot = []
+            for slot, hu in zip(slots, hus):
+                if slot is None:
+                    per_slot.append(None)
+                    continue
+                r1, r2, klds, restore = _ratios_and_restore(
+                    slot, hu, split_fn, seeds[slot.vol], pad_width, safe_mode
+                )
+                gr, gi = fft_conv_spec(r1, r2, solve.otf_t)
+                del r1, r2
+                ht1, ht2 = _split_ht(gr, gi, solve.update_norm)
+                per_slot.append((ht1 + ht2, (ht1 - 1.0) * (ht2 - 1.0), restore, klds))
+            del hus
+            cons = _conv_pair(*[None if p is None else p[1] for p in per_slot], solve.otf2)
+            steps, records = [], []
+            for slot, p, consensus in zip(slots, per_slot, cons):
+                if slot is None:
+                    continue
+                new_recon, new_prev, record = _update(consensus, slot, p[0], p[2], p[3], pad_width)
+                steps.append((slot, new_recon, new_prev))
+                records.append(record)
+            del per_slot, cons
+            with profiling.span("rlgc.read"):
+                values = profiling.read_list(torch.stack(records))
+            for (slot, new_recon, new_prev), record in zip(steps, values):
+                _advance(slot, new_recon, new_prev, record, solve.num_pixels, limit, max_delta)
+            for i, slot in enumerate(slots):
+                if slot is not None and (slot.done or slot.it >= max_iters):
+                    out[slot.vol] = remove_padding_zyx(slot.recon, pad_width)
+                    iters[slot.vol] = slot.it
+                    slots[i] = load(queued) if queued < n_vol else None
+                    queued += 1
     return out, iters
 
 
@@ -338,7 +345,7 @@ def _result(t: torch.Tensor, out: str):
     if out == "device":
         return t
     if out == "host":
-        return t.cpu().numpy()
+        return profiling.to_host(t)
     raise ValueError(f"out must be 'host' or 'device', got {out!r}")
 
 
@@ -363,14 +370,15 @@ def rlgc(
     array. ``split_fn(observed, seed, iteration)`` replaces the binomial
     split (a test injects the reference's splits through it).
     ``return_iters`` also returns the solve's iteration count."""
-    img = as_device_tensor(image, device).to(torch.float32)
-    psf = _as_psf(psf)
-    pad_width = linear_fft_pad_width(tuple(img.shape), psf.shape, pad_yx=pad_yx)
-    recon, iters = _rlgc_core(
-        pad_symmetric(img, pad_width), psf, seed, pad_width=pad_width, safe_mode=safe_mode,
-        limit=limit, max_delta=max_delta, max_iters=max_iters, split_fn=split_fn,
-    )
-    result = _result(remove_padding_zyx(recon, pad_width).contiguous(), out)
+    with profiling.span("rlgc.solve"):
+        img = as_device_tensor(image, device).to(torch.float32)
+        psf = _as_psf(psf)
+        pad_width = linear_fft_pad_width(tuple(img.shape), psf.shape, pad_yx=pad_yx)
+        recon, iters = _rlgc_core(
+            pad_symmetric(img, pad_width), psf, seed, pad_width=pad_width, safe_mode=safe_mode,
+            limit=limit, max_delta=max_delta, max_iters=max_iters, split_fn=split_fn,
+        )
+        result = _result(remove_padding_zyx(recon, pad_width).contiguous(), out)
     return (result, iters) if return_iters else result
 
 
@@ -395,27 +403,28 @@ def rlgc_batch(
     reference's default; otherwise the volumes are solved one by one.
     Integer data (u16) uploads as it is and is cast on the device.
     ``return_iters`` also returns the iteration count of each volume."""
-    if not isinstance(images, torch.Tensor):
-        images = np.asarray(images)
-    stack = as_device_tensor(images, device)
-    psf = _as_psf(psf)
-    pad_width = linear_fft_pad_width(tuple(stack.shape[1:]), psf.shape)
-    kw = dict(pad_width=pad_width, safe_mode=safe_mode, limit=limit, max_delta=max_delta,
-              max_iters=max_iters, split_fn=split_fn)
-    seeds = [seed + i for i in range(stack.shape[0])]
-    if pair and stack.shape[0] >= 2:
-        result, iters = _rlgc_queue_core(stack, psf, seeds, **kw)
-    else:
-        result = torch.empty(stack.shape, dtype=torch.float32, device=stack.device)
-        iters = []
-        solve = None
-        for i in range(stack.shape[0]):
-            padded = pad_symmetric(stack[i].to(torch.float32), pad_width)
-            solve = solve or _prepare_solve(padded.shape, psf, pad_width, padded.device)
-            recon, n = _rlgc_core(padded, psf, seeds[i], solve=solve, **kw)
-            result[i] = remove_padding_zyx(recon, pad_width)
-            iters.append(n)
-    result = _result(result, out)
+    with profiling.span("rlgc.solve"):
+        if not isinstance(images, torch.Tensor):
+            images = np.asarray(images)
+        stack = as_device_tensor(images, device)
+        psf = _as_psf(psf)
+        pad_width = linear_fft_pad_width(tuple(stack.shape[1:]), psf.shape)
+        kw = dict(pad_width=pad_width, safe_mode=safe_mode, limit=limit, max_delta=max_delta,
+                  max_iters=max_iters, split_fn=split_fn)
+        seeds = [seed + i for i in range(stack.shape[0])]
+        if pair and stack.shape[0] >= 2:
+            result, iters = _rlgc_queue_core(stack, psf, seeds, **kw)
+        else:
+            result = torch.empty(stack.shape, dtype=torch.float32, device=stack.device)
+            iters = []
+            solve = None
+            for i in range(stack.shape[0]):
+                padded = pad_symmetric(stack[i].to(torch.float32), pad_width)
+                solve = solve or _prepare_solve(padded.shape, psf, pad_width, padded.device)
+                recon, n = _rlgc_core(padded, psf, seeds[i], solve=solve, **kw)
+                result[i] = remove_padding_zyx(recon, pad_width)
+                iters.append(n)
+        result = _result(result, out)
     return (result, iters) if return_iters else result
 
 

@@ -27,15 +27,12 @@ from __future__ import annotations
 import torch
 
 from .. import _build
+from ..utils.profiling import count
 from .fftutils import observed_region_mask
 
 _LANE = 128
 _EPS_KLD = 1e-4
 _MAX_BLOCKS = 2048
-
-# launches of each kernel since the last reset (chip_smoke reads them)
-launch_count = {"ratio_kld": 0, "update_select": 0}
-
 
 def fused_elementwise_supported(shape) -> bool:
     """Shape gate of the flat (rows, nx) view both kernels use."""
@@ -121,7 +118,7 @@ def ratio_kld_cuda(hu, split1, split2, pad_width):
         _build.stream_handle(hu.device),
     )
     _build.check(status, "ratio_kld")
-    launch_count["ratio_kld"] += 1
+    count("launch.ratio_kld_f32")
     sp, sq1, sq2, spp, st1, st2 = partials.sum(dim=0).unbind()
     frac = spp / sp
     kld1 = st1 / sp - torch.log(sp / sq1) * frac
@@ -144,7 +141,7 @@ def update_select_cuda(consensus, recon, prev_recon, ht, should_restore, pad_wid
         _build.stream_handle(consensus.device),
     )
     _build.check(status, "update_select")
-    launch_count["update_select"] += 1
+    count("launch.update_select_f32")
     max_new, max_abs_delta = maxima.max(dim=0).values.unbind()
     return new_recon, new_prev, counts.sum(), max_new, max_abs_delta
 

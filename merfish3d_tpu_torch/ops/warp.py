@@ -32,6 +32,7 @@ import itertools
 import numpy as np
 import torch
 
+from ..utils.profiling import to_device, to_host
 from .device import as_device_tensor
 
 
@@ -58,7 +59,7 @@ def translate_volume(vol: torch.Tensor, shift_pull_px, cval: float = 0.0) -> tor
     may be a tensor on the volume's device; nothing is read back to the
     host."""
     out = vol.to(torch.float32)
-    shift = torch.as_tensor(shift_pull_px, dtype=torch.float32, device=vol.device)
+    shift = as_device_tensor(shift_pull_px, vol.device).to(torch.float32)
     for ax in range(vol.ndim):
         n = vol.shape[ax]
         s = shift[ax]
@@ -188,7 +189,7 @@ def _warp_class(matrix_px: np.ndarray) -> str:
 
 def _warp_one(image, kind, matrix_px, offset_px, reference_shape, *, order=1, z_chunk=8, cval=0.0):
     if kind == "translate":
-        return translate_volume(image, torch.as_tensor(offset_px, device=image.device), cval=cval)
+        return translate_volume(image, to_device(offset_px, image.device), cval=cval)
     if kind == "diagonal":
         return separable_diagonal_resample(image, np.diag(matrix_px).copy(), offset_px, cval=cval)
     return _affine_warp_core(image, matrix_px, offset_px, reference_shape=reference_shape,
@@ -275,9 +276,9 @@ def warp_affine_batch(
         live = 3 if kind == "general" else 5
         for s, e in _sub_batches(idx.size, images[0].nbytes, hbm_budget_bytes, live_per_item=live):
             sel = idx[s:e]
-            batch = torch.as_tensor(images[sel], device=device)
+            batch = to_device(images[sel], device)
             for j, i in enumerate(sel):
-                out[i] = _warp_one(batch[j], kind, mats[i], offs[i], images.shape[1:]).cpu().numpy()
+                out[i] = to_host(_warp_one(batch[j], kind, mats[i], offs[i], images.shape[1:]))
     return out
 
 
@@ -300,7 +301,7 @@ def _div(x: torch.Tensor, value) -> torch.Tensor:
     turns a division by a host scalar into a product with its reciprocal,
     which can round one bit apart, so the divisor goes as a device
     tensor."""
-    return x / torch.tensor(float(value), dtype=torch.float32, device=x.device)
+    return x / to_device(np.float32(value), x.device)
 
 
 def _upsample_flow_channel(ch: torch.Tensor, *, out_shape, stride_zyx, box_start_zyx) -> torch.Tensor:
@@ -361,8 +362,7 @@ def _flow_warp_separable_core(images, flows_xyz, scales, offsets_px, strides_zyx
     out = images.to(torch.float32)
     dev = out.device
     # (3, B, 3): m - 1, offset and m of each item and axis, in float32
-    params = torch.as_tensor(np.stack([scales - np.float32(1.0), offsets_px, scales]).astype(np.float32),
-                             device=dev)
+    params = to_device(np.stack([scales - np.float32(1.0), offsets_px, scales]).astype(np.float32), dev)
     for ax, ch in ((0, 2), (1, 1), (2, 0)):
         d = torch.stack([
             _upsample_flow_channel(flows_xyz[i, ch], out_shape=out_shape, stride_zyx=strides_zyx[i],
@@ -489,8 +489,8 @@ def warp_affine_plus_flow(
     box_start_zyx = np.asarray(map_box_start_xyz_px, np.float32)[::-1].copy()
     stride = np.asarray(map_stride_zyx_px, np.float32)
     ref_shape = tuple(int(v) for v in reference_shape)
-    flow_np = np.asarray(flow_xyz.cpu() if isinstance(flow_xyz, torch.Tensor) else flow_xyz, np.float32)
-    flow = torch.as_tensor(flow_np, device=img.device)
+    flow_np = np.asarray(to_host(flow_xyz) if isinstance(flow_xyz, torch.Tensor) else flow_xyz, np.float32)
+    flow = to_device(flow_np, img.device)
     if method != "gather" and tuple(img.shape) == ref_shape:
         k_ranges = _separable_flow_bounds(matrix_px, offset_px, flow_np, ref_shape)
         if k_ranges is not None:
@@ -530,7 +530,7 @@ def warp_affine_plus_flow_batch_device(
     strides = np.asarray(map_strides_zyx_px, np.float32)
     box_zyx = np.asarray(map_box_starts_xyz_px, np.float32)[:, ::-1].copy()
     mats, offs, k_ranges = _flow_batch_plan(transforms_zyx_um, spacing_zyx_um, flows_np, out_shape)
-    flows = torch.as_tensor(flows_np, device=images.device)
+    flows = to_device(flows_np, images.device)
     n = images.shape[0]
     if k_ranges is None:
         return torch.stack([
@@ -573,8 +573,8 @@ def warp_affine_plus_flow_batch(
     out = np.empty_like(images)
     live = 6 if k_ranges is not None else 3
     for s, e in _sub_batches(images.shape[0], images[0].nbytes, hbm_budget_bytes, live_per_item=live):
-        batch = torch.as_tensor(images[s:e], device=device)
-        flows = torch.as_tensor(flows_np[s:e], device=device)
+        batch = to_device(images[s:e], device)
+        flows = to_device(flows_np[s:e], device)
         if k_ranges is not None:
             res = _flow_warp_separable_core(batch, flows, scales[s:e], offs[s:e], strides[s:e], box_zyx[s:e],
                                             k_ranges=k_ranges, out_shape=out_shape)
@@ -584,7 +584,7 @@ def warp_affine_plus_flow_batch(
                                        reference_shape=out_shape, z_chunk=z_chunk)
                 for j, i in enumerate(range(s, e))
             ])
-        out[s:e] = res.cpu().numpy()
+        out[s:e] = to_host(res)
     return out
 
 

@@ -24,6 +24,7 @@ from ..ops.warp import (
     warp_affine_plus_flow,
     warp_affine_plus_flow_batch_device,
 )
+from ..utils.profiling import to_device
 
 
 def compose_decode_warp_transform_zyx_um(*, round_transform_zyx_um, chromatic_transform_zyx_um) -> np.ndarray:
@@ -85,10 +86,10 @@ def warp_bit_images_to_reference(images: torch.Tensor, *, store: ArrayStore, til
     out = images.clone()
     spacing = store.voxel_size_zyx_um
     if affine_only.size:
-        idx = torch.as_tensor(affine_only, device=images.device)
+        idx = to_device(affine_only, images.device)
         out[idx] = warp_affine_batch_device(images[idx], transforms[affine_only], spacing)
     if with_flow.size:
-        idx = torch.as_tensor(with_flow, device=images.device)
+        idx = to_device(with_flow, images.device)
         sel = [flows[i] for i in with_flow]
         out[idx] = warp_affine_plus_flow_batch_device(
             images[idx],

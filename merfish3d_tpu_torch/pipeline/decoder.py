@@ -32,6 +32,8 @@ from ..ops.cc import SparseIntensity, component_stats_host, inertia_tensor_eigva
 from ..ops.decode import caller_thresholds, decode_volume
 from ..ops.filters import gaussian_lowpass
 from ..ops.fused_decode import fused_decode_volume, gather_values
+from ..utils import profiling
+from ..utils.profiling import read_scalar, to_device, to_host
 from . import decode_warping
 from .chromatic import (
     ChromaticAffineEstimationConfig,
@@ -72,7 +74,7 @@ def seed_lowpass_program(stack: torch.Tensor, *, hot_threshold: float, sigma):
     cleaned = torch.where(stack > hot_threshold, med[:, None, None, None], stack)
     support = (cleaned > 0.0).sum(dim=(1, 2, 3))
     lp = torch.stack([gaussian_lowpass(v, sigma=sigma) for v in cleaned])
-    return lp, support.cpu().numpy().astype(np.int64)
+    return lp, to_host(support).astype(np.int64)
 
 
 def seed_stats_program(stacks, *, sigma, hot_threshold: float, low_cut: float, high_cut: float):
@@ -91,6 +93,7 @@ def seed_stats_program(stacks, *, sigma, hot_threshold: float, low_cut: float, h
         support_b = int(sum(sup[b] for _, sup in seeded))
         cuts = percentile_linear(vbt, low_cut)
         low = vbt[vbt < cuts[:, None]]
+        profiling.count("copy.reads")  # a boolean index reads its selection's size back
         bg_b = median_last(low) if low.numel() else torch.zeros((), device=vbt.device)
         shifted = torch.clamp(vbt - bg_b, min=0.0)
         if _sparse_support_bit(support_b, vbt.numel(), high_cut):
@@ -104,9 +107,10 @@ def seed_stats_program(stacks, *, sigma, hot_threshold: float, low_cut: float, h
         else:
             hcuts = percentile_linear(shifted, high_cut)
             high = shifted[shifted > hcuts[:, None]]
+            profiling.count("copy.reads")
             norm_b = median_last(high) if high.numel() else torch.ones((), device=vbt.device)
-        norm[b] = float(norm_b)
-        bg[b] = float(bg_b)
+        norm[b] = read_scalar(norm_b)
+        bg[b] = read_scalar(bg_b)
     return norm, bg
 
 
@@ -178,15 +182,14 @@ class PixelDecoder:
         if self._warped_memo is not None and self._warped_memo[0] == key:
             return self._warped_memo[1]
         self._warped_memo = None
-        du, pu = self._store.registered_stack(tile_idx)
-        nb = self._n_merfish_bits
-        stack = product_f32(
-            torch.as_tensor(du[:nb], device=self._device),
-            torch.as_tensor(pu[:nb], device=self._device),
-        )
-        warped = decode_warping.warp_bit_images_to_reference(
-            stack, store=self._store, tile=tile_idx, bits=range(nb)
-        )
+        with profiling.span("decoder.load"):
+            du, pu = self._store.registered_stack(tile_idx)
+            nb = self._n_merfish_bits
+            stack = product_f32(to_device(du[:nb], self._device), to_device(pu[:nb], self._device))
+            with profiling.span("decoder.warp"):
+                warped = decode_warping.warp_bit_images_to_reference(
+                    stack, store=self._store, tile=tile_idx, bits=range(nb)
+                )
         self._warped_memo = (key, warped)
         return warped
 
@@ -226,13 +229,14 @@ class PixelDecoder:
             tiles = random.sample(range(n_tiles), 5)
         else:
             tiles = list(range(n_tiles))
-        norm, bg = seed_stats_program(
-            [self._load_warped_bit_stack(t) for t in tiles],
-            sigma=tuple(float(s) for s in lowpass_sigma),
-            hot_threshold=float(hot_pixel_threshold),
-            low_cut=float(low_percentile_cut),
-            high_cut=float(high_percentile_cut),
-        )
+        with profiling.span("decoder.seed"):
+            norm, bg = seed_stats_program(
+                [self._load_warped_bit_stack(t) for t in tiles],
+                sigma=tuple(float(s) for s in lowpass_sigma),
+                hot_threshold=float(hot_pixel_threshold),
+                low_cut=float(low_percentile_cut),
+                high_cut=float(high_percentile_cut),
+            )
         self._global_normalization_vector = norm
         self._global_background_vector = bg
         self._store.save_normalization_vectors(norm, bg, run_key="global")
@@ -325,28 +329,41 @@ class PixelDecoder:
         self, tile_idx: int, *, lowpass_sigma=DEFAULT_DECODE_LOWPASS_SIGMA,
         optimize_normalization_weights: bool = False,
     ) -> dict:
-        stack = self._load_warped_bit_stack(tile_idx)
-        decoded, mag, dist, intensity = self._device_decode(
-            stack, lowpass_sigma=lowpass_sigma, optimize=optimize_normalization_weights
-        )
-        return self._extract_barcodes(
-            decoded, mag, dist, intensity, tile_idx, self._global_xforms_snapshot(tile_idx)
-        )
+        with profiling.span("decoder.pass" if optimize_normalization_weights else "decoder.final"):
+            stack = self._load_warped_bit_stack(tile_idx)
+            decoded, mag, dist, intensity = self._device_decode(
+                stack, lowpass_sigma=lowpass_sigma, optimize=optimize_normalization_weights
+            )
+            return self._extract_barcodes(
+                decoded, mag, dist, intensity, tile_idx, self._global_xforms_snapshot(tile_idx)
+            )
 
     def _extract_barcodes(
         self, decoded, magnitude, distance, intensity, tile_idx: int, state: dict
     ) -> dict:
         """Connected components + region features → decoded-features
         table, in the reference's column order."""
-        decoded_i32 = np.ascontiguousarray(decoded, np.int32)
-        stats = component_stats_host(
-            decoded_i32,
-            native.label_components_sparse(decoded_i32),
-            np.asarray(distance, np.float32),
-            np.asarray(magnitude, np.float32),
-            intensity,
-            collect_weighted_centroids=self._collect_chromatic_centroids,
-        )
+        with profiling.span("decoder.extract"):
+            decoded_i32 = np.ascontiguousarray(decoded, np.int32)
+            with profiling.span("decoder.extract.label"):
+                labels = native.label_components_sparse(decoded_i32)
+            with profiling.span("decoder.extract.stats"):
+                stats = component_stats_host(
+                    decoded_i32,
+                    labels,
+                    np.asarray(distance, np.float32),
+                    np.asarray(magnitude, np.float32),
+                    intensity,
+                    collect_weighted_centroids=self._collect_chromatic_centroids,
+                )
+            del labels
+            with profiling.span("decoder.extract.table"):
+                return self._barcode_table(stats, tile_idx, state)
+
+    def _barcode_table(self, stats: dict, tile_idx: int, state: dict) -> dict:
+        """The decoded-features table of a tile's component statistics:
+        components within the size window, with their region features,
+        global coordinates and signal columns."""
         area = stats["area"]
         keep = (area >= self._minimum_pixels) & (area <= self._maximum_pixels)
         if not keep.any():
@@ -477,11 +494,13 @@ class PixelDecoder:
             store.iteration_checkpoints[it] = frames
             self._barcodes_loaded = concat_tables(frames)
             if self._estimate_chromatic and table_len(self._barcodes_loaded):
-                estimate_chromatic_affines_from_barcodes(
-                    store, self._barcodes_loaded, n_merfish_bits=self._n_merfish_bits,
-                    config=self._chromatic_affine_config,
-                )
-            self._iterative_normalization_vectors()
+                with profiling.span("decoder.chromatic"):
+                    estimate_chromatic_affines_from_barcodes(
+                        store, self._barcodes_loaded, n_merfish_bits=self._n_merfish_bits,
+                        config=self._chromatic_affine_config,
+                    )
+            with profiling.span("decoder.vectors"):
+                self._iterative_normalization_vectors()
         self._collect_chromatic_centroids = False
 
     # -------------------------------------------------------- full pipeline
@@ -504,7 +523,8 @@ class PixelDecoder:
         self._warped_memo = None  # release the device stack
         table = concat_tables([store.decoded_tables[t] for t in range(store.num_tiles)])
         self._barcodes_loaded = table
-        table = self._apply_filter_method(table, filter_method, target_misid_rate)
+        with profiling.span("decoder.filter"):
+            table = self._apply_filter_method(table, filter_method, target_misid_rate)
         store.filtered_table = table
         return table
 

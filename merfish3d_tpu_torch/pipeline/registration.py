@@ -45,6 +45,8 @@ from ..models.ufish import DEFAULT_UFISH_MODEL, get_predictor
 from ..ops.flow import SofimaRegistrationConfig, estimate_sofima_flow_field_xyz_px
 from ..ops.registration import register_rounds_to_fixed
 from ..ops.rlgc import chunked_rlgc, max_vmap_batch, rlgc_batch
+from ..utils import profiling
+from ..utils.profiling import to_device, to_host
 from .handoff import to_cache_forms
 
 
@@ -92,8 +94,11 @@ class DataRegistration:
                 "multi-tile global registration is not ported; one tile only"
             )
         for tile in range(store.num_tiles):
-            self._generate_registrations(tile)
-            self._apply_registration_to_bits(tile)
+            with profiling.span("registration.tile", run=store.run_id):
+                with profiling.span("registration.fiducial"):
+                    self._generate_registrations(tile)
+                with profiling.span("registration.bits"):
+                    self._apply_registration_to_bits(tile)
             store.global_xforms[tile] = (
                 np.eye(4),
                 np.asarray(store.stage_positions_zyx_um[tile], np.float64),
@@ -119,7 +124,7 @@ class DataRegistration:
         """A stack of u16 volumes, uploaded as u16, cast on the device and
         deconvolved: one batch solve when it holds more than one volume
         and y ≤ ``crop_yx_decon or 1024``, else one tiled solve each."""
-        stack = torch.as_tensor(raws, device=self._device).to(torch.float32)
+        stack = to_device(raws, self._device).to(torch.float32)
         if psf is None:
             return stack
         if len(raws) > 1 and raws.shape[-2] <= (self._crop_yx_decon or 1024):
@@ -136,7 +141,7 @@ class DataRegistration:
         )[0]
         store.round_transforms[(tile, 0)] = np.eye(4)
         store.fiducial_registered[(tile, 0)] = (
-            reference_dev.clamp(0, 65535).to(torch.int32).cpu().numpy().astype(np.uint16)
+            to_host(reference_dev.clamp(0, 65535).to(torch.int32)).astype(np.uint16)
         )
         moving = list(range(1, store.num_rounds))
         batch = self._round_batch_size
@@ -148,11 +153,12 @@ class DataRegistration:
             movings = self._decon_stack(
                 raws, fid_psf, 42 + tile + 1000 + start, [42 + tile + r * 1000 for r in rounds]
             )
-            transforms, warped = register_rounds_to_fixed(
-                reference_dev, movings, spacing_zyx_um=store.voxel_size_zyx_um,
-                return_warped=True, device=self._device,
-            )
-            warped_host = warped.cpu().numpy()
+            with profiling.span("registration.phase_corr"):
+                transforms, warped = register_rounds_to_fixed(
+                    reference_dev, movings, spacing_zyx_um=store.voxel_size_zyx_um,
+                    return_warped=True, device=self._device,
+                )
+            warped_host = to_host(warped)
             for i, r in enumerate(rounds):
                 store.round_transforms[(tile, r)] = transforms[i].astype(np.float64)
                 store.fiducial_registered[(tile, r)] = warped_host[i]
@@ -178,8 +184,12 @@ class DataRegistration:
                 decons = self._decon_stack(
                     raws, psf, 7 + tile * 100 + chunk[0], [7 + tile * 100 + b for b in chunk]
                 )
-                du, pu = to_cache_forms(decons, self._predictor(decons))
-                du, pu = du.cpu().numpy(), pu.cpu().numpy()
+                with profiling.span("registration.predict"):
+                    probs = self._predictor(decons)
+                with profiling.span("registration.download"):
+                    du, pu = to_cache_forms(decons, probs)
+                    del probs
+                    du, pu = to_host(du), to_host(pu)
                 for i, b in enumerate(chunk):
                     store.registered[(tile, b)] = du[i]
                     store.feature_predictor[(tile, b)] = pu[i]

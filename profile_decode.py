@@ -24,9 +24,12 @@ each on a freshly registered store:
 
 1. unsectioned: the plain wall time (the first run also builds the
    kernels and warms the allocator);
-2. sectioned: each section below is timed on the host clock, with
-   ``torch.cuda.synchronize()`` at its entry and exit so device work is
-   charged to the section that queued it;
+2. sectioned: the port's own ``decoder.*`` spans
+   (:mod:`merfish3d_tpu_torch.utils.profiling`, tracing on for this run),
+   each with its calls, seconds and self seconds, and the bytes and reads
+   that crossed between host and device under it. Spans time the host and
+   never synchronize, so device work queued in one section may be waited
+   for in a later one;
 3. profiled: ``torch.profiler`` over CPU and CUDA. The device busy share
    is the union of the device (kernel and copy) intervals over the wall;
    K1's, K2's and K3's device time and launches, and their shares of the
@@ -105,10 +108,12 @@ instead renders the deformed production tile (``chip_smoke.py`` phase
 10's input), registers it as phase 10 does (readout RLGC, 10 iterations,
 DoG, deformable flow) and then
 times one round's flow estimate (round 1, the default
-``SofimaRegistrationConfig``) by part — each patch cross-correlation
-pass, the host cleaning, the relaxation (its sweeps), the re-warp, the
-composition — on the host clock with ``torch.cuda.synchronize()`` at
-each part's entry and exit (means of 3 estimates after a warm-up), then
+``SofimaRegistrationConfig``) by part, from the port's ``flow.*`` spans
+(tracing on): the patch cross-correlation passes, the host cleaning, the
+relaxation (and its sweeps, ``flow.sweeps``), the re-warp, and the
+estimate's own time beside them (the composition, medians, uploads);
+spans time the host without synchronizing, so a part's device work may
+be waited for in the next (means of 3 estimates after a warm-up), then
 one estimate under ``torch.profiler``; then where the field is right:
 each moving round's first even bit warped by its affine alone and with
 the flow, its isolated spots against their true positions, and round
@@ -139,62 +144,25 @@ import time
 
 import chip_smoke
 
-# (owner, attribute, label); a label that starts with "- " runs inside the
-# section above it. ``gaussian_lowpass`` is counted both inside seeding and
-# in the optimization passes.
-SECTIONS = (
-    ("decoder.PixelDecoder", "_load_warped_bit_stack", "load stack (u16/u8 upload + product)"),
-    ("decoder", "seed_stats_program", "seed_stats_program (incl. its lowpass)"),
-    ("decoder", "gaussian_lowpass", "plain gaussian_lowpass (seeding + optimization)"),
-    ("decoder", "decode_volume", "decode_volume (K3, thresholds, device-to-host)"),
-    ("decoder", "gather_values", "optimization foreground gather"),
-    ("decoder", "fused_decode_volume", "fused_decode_volume (K1+K2, device-to-host, gather)"),
-    ("decoder.PixelDecoder", "_extract_barcodes", "extraction, total"),
-    ("decoder.native", "label_components_sparse", "- label_components_sparse (C++)"),
-    ("decoder", "component_stats_host", "- component_stats_host (numpy)"),
-    ("decoder.PixelDecoder", "_iterative_normalization_vectors", "iterative vectors"),
-    ("decoder.PixelDecoder", "_apply_filter_method", "blank-fraction filter"),
-)
-
-
 # the decode kernels by the fragment of their device names
 DECODE_KERNELS = (("zy_lowpass", "K1 zy_lowpass"), ("x_lowpass_decode", "K2 x_lowpass_decode"),
                   ("decode_chunk", "K3 decode_chunk"))
 
 
-def _timed(fn, label, acc):
-    import torch
-
-    def wrapper(*args, **kwargs):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        try:
-            return fn(*args, **kwargs)
-        finally:
-            torch.cuda.synchronize()
-            acc[label] += time.perf_counter() - t0
-
-    return wrapper
-
-
 def sectioned_run(raw) -> tuple[dict, float, float]:
-    from merfish3d_tpu_torch.pipeline import decoder
+    """The decode stage on a fresh store with the port's tracing on:
+    (the registry's snapshot, optimization s, final-decode s)."""
+    from merfish3d_tpu_torch.utils import profiling
 
-    acc: dict = collections.defaultdict(float)
-    saved = []
-    for owner_path, attr, label in SECTIONS:
-        owner = decoder
-        for part in owner_path.split(".")[1:]:
-            owner = getattr(owner, part)
-        fn = owner.__dict__[attr] if isinstance(owner, type) else getattr(owner, attr)
-        saved.append((owner, attr, fn))
-        setattr(owner, attr, _timed(fn, label, acc))
+    store = chip_smoke.registered_store(raw)
+    profiling.enable()
+    profiling.reset()
     try:
-        _, t_opt, t_final = chip_smoke.decode_stage(chip_smoke.registered_store(raw))
+        _, t_opt, t_final = chip_smoke.decode_stage(store)
+        return profiling.snapshot(), t_opt, t_final
     finally:
-        for owner, attr, fn in saved:
-            setattr(owner, attr, fn)
-    return dict(acc), t_opt, t_final
+        profiling.enable(False)
+        profiling.reset()
 
 
 def device_busy_seconds(events) -> float:
@@ -677,15 +645,6 @@ def device_ms(fn, fragments, reps: int = 10) -> float:
     return rows["kernel"] / reps
 
 
-FLOW_PARTS = (
-    ("_patch_xcorr_flow", "patch cross-correlation pass (gather, torch.fft, peak statistics, read-back)"),
-    ("_clean_flow", "cleaning (host numpy)"),
-    ("_relax_field", "relaxation (one scalar read a sweep)"),
-    ("_flow_warp_separable_core", "re-warp between passes (separable)"),
-    ("_compose_flow_fields_same_grid", "composition (host)"),
-)
-
-
 def isolated_spots(raw, bit: int, min_gap=(3.0, 8.0, 8.0)) -> np.ndarray:
     """Ground-truth positions (px, the tile's frame) of the spots bit
     ``bit`` images with no other of its spots within ``min_gap`` (z, y,
@@ -768,6 +727,7 @@ def profile_flow(raw) -> None:
     from merfish3d_tpu_torch.ops import flow
     from merfish3d_tpu_torch.pipeline import decode_warping
     from merfish3d_tpu_torch.pipeline.registration import DataRegistration
+    from merfish3d_tpu_torch.utils import profiling
 
     log = chip_smoke.log
     store = convert_data(raw)
@@ -777,23 +737,9 @@ def profile_flow(raw) -> None:
     ref = torch.as_tensor(store.fiducial_corrected[(0, 0)], device="cuda").to(torch.float32)
     moving = torch.as_tensor(store.fiducial_registered[(0, 1)], device="cuda")
     flow.estimate_sofima_flow_field_xyz_px(ref, moving)  # warm-up
-    seconds: dict = collections.defaultdict(list)
-    sweeps: list = []
-    originals = {}
-    for name, label in FLOW_PARTS:
-        inner = originals[name] = getattr(flow, name)
-
-        def run(*args, _inner=inner, _name=name, _label=label, **kwargs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = _inner(*args, **kwargs)
-            torch.cuda.synchronize()
-            seconds[_label].append(time.perf_counter() - t0)
-            if _name == "_relax_field":
-                sweeps.append(out[1])
-            return out
-        setattr(flow, name, run)
     walls = []
+    profiling.enable()
+    profiling.reset()
     try:
         for _ in range(3):
             torch.cuda.synchronize()
@@ -801,17 +747,20 @@ def profile_flow(raw) -> None:
             _, meta = flow.estimate_sofima_flow_field_xyz_px(ref, moving)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
+        snap = profiling.snapshot()
     finally:
-        for name, inner in originals.items():
-            setattr(flow, name, inner)
+        profiling.enable(False)
+        profiling.reset()
     wall = sum(walls) / len(walls)
     lattice = tuple(store.flow_fields[(0, 1)][0].shape[1:])
     log(f"round 1 flow estimate (lattice {lattice} of (10, 32, 32) patches, {meta['valid_flow_vectors']} valid): "
         f"{wall:.4f} s, mean of {len(walls)} ({[round(w, 4) for w in walls]})")
-    for _, label in FLOW_PARTS:
-        calls = seconds[label]
-        log(f"  {label:78s} {sum(calls) / len(walls):.4f} s an estimate ({len(calls) // len(walls)} calls)"
-            + (f"; sweeps {sweeps}" if label.startswith("relaxation") else ""))
+    for name in ("flow.xcorr", "flow.clean", "flow.relax", "flow.warp", "flow.estimate"):
+        sec = snap["spans"].get(name, {"calls": 0, "self_seconds": 0.0})
+        log(f"  {name:14s} self {sec['self_seconds'] / len(walls):.4f} s an estimate "
+            f"({sec['calls'] // len(walls)} calls)")
+    log(f"  relaxation sweeps {snap['counters'].get('flow.sweeps', {}).get('total', 0) / len(walls):.1f} "
+        f"an estimate")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -906,15 +855,17 @@ def main() -> int:
     log(f"run 1, unsectioned: optimization {t_opt:.3f} s + final {t_final:.3f} s "
         f"= {t_opt + t_final:.3f} s")
 
-    sections, t_opt, t_final = sectioned_run(raw)
+    snap, t_opt, t_final = sectioned_run(raw)
     log(f"run 2, sectioned: optimization {t_opt:.3f} s + final {t_final:.3f} s "
         f"= {t_opt + t_final:.3f} s")
-    for _, _, label in SECTIONS:
-        log(f"  {label:58s} {sections.get(label, 0.0):.4f} s")
-    top = sum(sec for label, sec in sections.items()
-              if not label.startswith("- ") and "gaussian_lowpass" not in label)
-    log(f"  sum of the top-level sections (lowpass is inside seeding and optimization) "
-        f"{top:.4f} s")
+    counters = snap["counters"]
+    for name, sec in snap["spans"].items():
+        if name.startswith("decoder."):
+            moved = {c: counters.get(c, {}).get("by_span", {}).get(name, 0)
+                     for c in ("copy.d2h_bytes", "copy.h2d_bytes", "copy.reads")}
+            log(f"  {name:24s} {sec['calls']:3d} calls {sec['seconds']:8.4f} s, self {sec['self_seconds']:8.4f} s; "
+                f"down {moved['copy.d2h_bytes'] / 2**20:8.1f} MiB, up {moved['copy.h2d_bytes'] / 2**20:8.1f} MiB, "
+                f"{moved['copy.reads']} reads")
 
     store = chip_smoke.registered_store(raw)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:

@@ -27,6 +27,23 @@ def cuda():
     return torch.device("cuda")
 
 
+@pytest.fixture
+def launches():
+    """``launches(kernel)``: the kernel's launches since the test began,
+    from the port's tracing registry (on for the test's span)."""
+    from merfish3d_tpu_torch.utils import profiling
+
+    profiling.enable()
+    profiling.reset()
+
+    def read(kernel: str) -> int:
+        return profiling.snapshot()["counters"].get("launch." + kernel, {}).get("total", 0)
+
+    yield read
+    profiling.enable(False)
+    profiling.reset()
+
+
 def _codebook(rng, words=24, bits=16):
     cb = np.zeros((words, bits), np.float32)
     for w in range(words):
@@ -292,7 +309,7 @@ def test_slab_streaming_on_card_matches_whole_volume(cuda):
     np.testing.assert_array_equal(slabs[3](lin), whole[3].reshape(16, -1)[:, lin].astype(np.float32))
 
 
-def test_decode_volume_on_card_matches_cpu(cuda):
+def test_decode_volume_on_card_matches_cpu(cuda, launches):
     """K3 through decode_volume against the plain CPU path: ids equal except
     near-ties, f16 outputs one f16 step apart."""
     rng = np.random.default_rng(4)
@@ -321,12 +338,12 @@ def test_decode_volume_on_card_matches_cpu(cuda):
         seen.clear()
         dec.decode_chunk_cuda = spy
         try:
-            before = dec.launch_count
+            before = launches("decode_chunk_f32")
             got = dec.decode_volume(v, cb, bg, nm, z_chunk=z_chunk, return_scaled=False, **kw)
         finally:
             dec.decode_chunk_cuda = real
         chunks = range(0, 11, z_chunk)
-        assert dec.launch_count - before == len(chunks)
+        assert launches("decode_chunk_f32") - before == len(chunks)
         assert seen == [v[:, z0].data_ptr() for z0 in chunks]
         ref = dec.decode_volume(v.cpu().numpy(), cb, bg, nm, device="cpu", return_scaled=False, **kw)
         assert got[3] is None and (got[0] != ref[0]).mean() <= 1e-3
@@ -405,7 +422,7 @@ def test_dft_wrappers_refuse_bad_input(cuda):
 
 
 @pytest.mark.parametrize("n", range(2, 97))
-def test_k8_lengths_match_plain(cuda, n):
+def test_k8_lengths_match_plain(cuda, launches, n):
     """K8 at every length it takes, through the kernel its route names (the
     radix route or K10's z pass): forward on complex and real input,
     inverse to complex and real output, at a small ragged plane (600
@@ -415,7 +432,7 @@ def test_k8_lengths_match_plain(cuda, n):
     rng = np.random.default_rng(n)
     shape = (n, 6, 100)
     route = pfft.leading_route(n)
-    before = pfft.leading_route_count[route]
+    before = launches(f"dft_leading.{route}")
     for complex_in in (False, True):
         xr, xi = _pair(rng, shape, cuda, complex_in)
         fk, fp = pfft.dft_leading_cuda(xr, xi), pfft.dft_leading_plain(xr, xi)
@@ -427,7 +444,7 @@ def test_k8_lengths_match_plain(cuda, n):
             torch.cuda.synchronize()
             assert (ik[1] is None) == real_output
             _assert_pair_close(ik, ip, max(ip[0].abs().max().item(), xr.abs().max().item()))
-    assert pfft.leading_route_count[route] == before + 6
+    assert launches(f"dft_leading.{route}") == before + 6
 
 
 # ------------------------------------------------------------ RLGC kernels
@@ -559,7 +576,7 @@ _K11_CASES = [
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape,kshape,act", _K11_CASES)
-def test_k11_matches_plain(cuda, shape, kshape, act, dtype):
+def test_k11_matches_plain(cuda, launches, shape, kshape, act, dtype):
     """K11 against its plain version (F.conv2d on f32 copies): bf16 within
     one bf16 step, f32 within 2e-5 x max (sums in another order). bf16
     operands, narrow layers included, take the tensor-core kernel; f32
@@ -570,12 +587,11 @@ def test_k11_matches_plain(cuda, shape, kshape, act, dtype):
     x = torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device=cuda).to(dtype)
     w = torch.as_tensor((rng.standard_normal(kshape) * 0.2).astype(np.float32), device=cuda).to(dtype)
     b = torch.as_tensor(rng.standard_normal(kshape[-1]).astype(np.float32), device=cuda)
-    before = (c2.launch_count, c2.launch_count_direct)
     k = c2.conv2d_same(x, w, b, act=act)
     p = c2.conv2d_same_plain(x, w, b, act=act)
     torch.cuda.synchronize()
     mma = dtype == torch.bfloat16
-    assert (c2.launch_count, c2.launch_count_direct) == (before[0] + mma, before[1] + (not mma))
+    assert (launches("conv2d_same_mma_bf16"), launches("conv2d_same_f32")) == (mma, not mma)
     assert k.dtype == dtype and k.shape == p.shape
     if dtype == torch.bfloat16:
         assert _within_one_bf16_step(k, p)
@@ -604,7 +620,7 @@ def test_k11_wrapper_refuses_bad_input(cuda):
         c2.conv2d_same_cuda(x, w, b, out_dtype=torch.float16)
 
 
-def test_predictor_batch_on_card_matches_plain(cuda, monkeypatch):
+def test_predictor_batch_on_card_matches_plain(cuda, launches, monkeypatch):
     """One 8-plane batch of 256x256 planes through the c8 checkpoint's
     U-Net on the card, through K11 and through the plain convolutions: one
     layer's one-step bf16 differences travel through the later layers, so
@@ -619,11 +635,11 @@ def test_predictor_batch_on_card_matches_plain(cuda, monkeypatch):
     planes = np.random.default_rng(10).poisson(40.0, (8, 256, 256)).astype(np.float32)
     planes[:, 100:104, 50:54] += 900.0
     pred = ufish.UFishPredictor(params=variables, device=cuda)
-    before = (c2.launch_count, c2.launch_count_direct)
+    before = (launches("conv2d_same_mma_bf16"), launches("conv2d_same_f32"))
     got = pred.predict_planes(torch.as_tensor(planes, device=cuda))
     # every conv of the c8 U-Net once, the first (Cin = 1) and the head
     # (Co = 1) included, through the tensor-core kernel
-    assert (c2.launch_count - before[0], c2.launch_count_direct - before[1]) == (13, 0)
+    assert (launches("conv2d_same_mma_bf16") - before[0], launches("conv2d_same_f32") - before[1]) == (13, 0)
     monkeypatch.setattr(ufish, "conv2d_same", c2.conv2d_same_plain)
     want = pred.predict_planes(torch.as_tensor(planes, device=cuda))
     torch.cuda.synchronize()
