@@ -27,7 +27,12 @@ Run from the root of a checkout. Phases, each raising on failure:
    ConvTranspose U-FISH network (seeded weights), on the activations that
    batch gives each layer, with the weights packed as the network holds
    them: each layer's route (the tensor-core kernel for every bf16 layer),
-   TFLOP/s and the batch's sum;
+   TFLOP/s and the batch's sum; the component labeller on the production
+   tile's decoded volume from a pass (K3) and from the final decode
+   (K1+K2), its roots equal to the plain labeller's, and the float64
+   component sums over the final decode's components within the size
+   window, unweighted and weighted, bit for bit equal to their plain
+   version on the host;
 4. the twelve hermetic DoG F1 cases of the standard and exhaustive
    matrices ({uniform, cells} x {0.315, 1.0, 1.5 um axial} x {no-decon,
    decon}: fiducial registration + decode, with RLGC on the readout bits
@@ -90,12 +95,13 @@ Run from the root of a checkout. Phases, each raising on failure:
    sites valid in both) and its two bits' flow batch warp (within 1e-5 ·
    max).
 
-The launch counts of the eleven kernels are zeroed before phase 4 and read
-after phase 6: every kernel must have run on the main path. They are
-zeroed again before phase 8 and read after phase 9: K1, K2, K3, K4, K5 and
-the DFT kernels of the bead solves must have run on the chromatic path;
-and before phase 10 and read after its registration and decode: K1, K2,
-K3, K4, K5, K7, K9 and K10 must have run on the deformed path.
+The launch counts of the thirteen kernels are zeroed before phase 4 and
+read after phase 6: every kernel must have run on the main path. They are
+zeroed again before phase 8 and read after phase 9: K1, K2, K3, K4, K5,
+the labeller, the sums and the DFT kernels of the bead solves must have
+run on the chromatic path; and before phase 10 and read after its
+registration and decode: K1, K2, K3, K4, K5, K7, K9, K10, the labeller and
+the sums must have run on the deformed path.
 Then one
 production bit is solved twice more, through the kernels and through
 their plain versions, from the same generator seed, and so is one camera
@@ -191,6 +197,7 @@ CAMERA_SHIFT_PX = (0.4, 1.7, -1.3)
 # the card's published peaks (H100 SXM): HBM bytes/s and FP32 flop/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+FP64_FLOP_PER_S = 34e12  # H100 SXM, non-tensor FP64
 BF16_TENSOR_FLOP_PER_S = 989e12  # dense bf16 tensor-core rate
 
 
@@ -424,6 +431,94 @@ def check_decode_kernels(raw) -> list[dict]:
             lambda: fd.fused_lowpass_decode_plain(vol, cbt, bg, nm, sigma=sigma, **thr)
         )
         log(f"  time: kernels {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    return rows
+
+
+def check_component_kernels(raw) -> list[dict]:
+    """The labeller and the sums against their plain versions on the
+    production tile decoded as in check_decode_kernels (bg 40 / norm 250)
+    through the decoder's two routes: the labeller on one pass's decoded
+    volume (the lowpassed tile through K3) and on the final decode's
+    (K1+K2), its roots equal to the plain labeller's on the card; the sums
+    over the final decode's components within the decoder's default size
+    window (16..500 voxels), unweighted and with the chromatic estimator's
+    weighted sums, bit for bit equal to the plain version on the host (on
+    the card its ``index_add_`` adds in any order)."""
+    import torch
+
+    from merfish3d_tpu_torch.ops import components as comp
+    from merfish3d_tpu_torch.ops import decode as dec
+    from merfish3d_tpu_torch.ops.filters import gaussian_lowpass
+    from merfish3d_tpu_torch.ops.fused_decode import fused_decode_volume
+
+    sigma = (3.0, 1.0, 1.0)
+    nbits = raw.bits.shape[1]
+    kw = dict(magnitude_threshold=(0.9, 10.0), distance_threshold=dec.caller_thresholds(4)[0])
+    bg, nm = np.full(nbits, 40.0, np.float32), np.full(nbits, 250.0, np.float32)
+    tile = torch.as_tensor(raw.bits[0], device="cuda").to(torch.float32)
+    passed = dec.decode_volume(gaussian_lowpass(tile, sigma=sigma), raw.codebook, bg, nm,
+                               return_scaled=False, on_device=True, **kw)[0]
+    decoded, mag, dist, scaled = fused_decode_volume(tile, raw.codebook, bg, nm, sigma=sigma,
+                                                     scaled_as="device", **kw)
+    del tile
+    torch.cuda.empty_cache()
+
+    def row(name, replaces, err, fn, plain_fn, nbytes, flops, flop_rate=FP32_FLOP_PER_S):
+        ms, plain_ms = cuda_ms(fn), cuda_ms(plain_fn, reps=3)
+        b = bound(nbytes, flops, flop_rate)
+        log(f"  time: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms "
+            f"({b['bound_by']}); no single torch call computes it")
+        return dict(name=name, route="cuda", source="merfish3d_tpu_torch/csrc/components.cu",
+                    replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain_ms, **b, library_ms=None)
+
+    for what, vol in (("a pass's", passed), ("the final decode's", decoded)):
+        k, p = comp.label_volume_cuda(vol), comp.label_volume_plain(vol)
+        fg = int((vol >= 0).sum())
+        n = int(torch.unique(k[k >= 0]).numel())
+        same = torch.equal(k, p)
+        log(f"label_components_i16 on {what} decoded volume {tuple(vol.shape)}: {fg} foreground voxels, "
+            f"{n} components; roots equal to the plain labeller's: {same}")
+        require(fg > 0, f"{what} decoded volume has no foreground")
+        require(same, f"label_components_i16 disagrees with the plain labeller on {what} decoded volume")
+    del k, p
+    rows = [row(
+        "label_components_i16", "merfish3d_tpu/native/__init__.py:163", 0.0,
+        lambda: comp.label_volume_cuda(passed), lambda: comp.label_volume_plain(passed),
+        # reads 2 B, writes a 4 B root a voxel
+        passed.numel() * 6, 0.0,
+    )]
+    del passed
+
+    lin_s, offsets, counts = comp.component_segments(comp.label_components(decoded), (16.0, 500.0))
+    voxels = int(counts.sum())
+    log(f"component_sums_f64 on the final decode's {counts.numel()} components within 16..500 voxels "
+        f"({voxels} voxels, {nbits} {str(scaled.dtype).removeprefix('torch.')} bits)")
+    require(counts.numel() > 0, "no component within the size window")
+    args = (lin_s, offsets, counts, decoded, mag, dist, scaled)
+    host = [t.cpu() for t in args]
+    for weighted in (False, True):
+        k = comp.component_sums_cuda(*args, weighted=weighted).cpu()
+        p = comp.component_sums_plain(*host, weighted=weighted)
+        err = float((k - p).abs().max())
+        same = torch.equal(k, p)
+        log(f"  {'weighted' if weighted else 'unweighted'}: {tuple(k.shape)} float64 sums, max abs err "
+            f"{err:.3e} against the plain version on the host, bit for bit: {same}")
+        require(same, f"component_sums_f64 ({'weighted' if weighted else 'unweighted'}) disagrees with "
+                      "the plain version on the host")
+        # a kept voxel: its index (8 B), magnitude, distance and bits (2 B each) read; a component: its
+        # offset and count (16 B) and codeword (2 B) read and its row written; a voxel's float64
+        # operations: 4 sums, 6 products and their sums, magnitude, distance, a sum a bit, and with
+        # the weights 3 products and 3 sums a bit
+        cols = k.shape[1]
+        nbytes = voxels * (12 + 2 * nbits) + counts.numel() * (18 + 8 * cols)
+        flops = voxels * (18 + nbits * (7 if weighted else 1))
+        r = row("component_sums_f64", "merfish3d_tpu/ops/cc.py:219", err,
+                lambda: comp.component_sums_cuda(*args, weighted=weighted),
+                lambda: comp.component_sums_plain(*args, weighted=weighted), nbytes, flops, FP64_FLOP_PER_S)
+        if weighted:
+            rows[-1].update(weighted_ms=r["ms"], weighted_plain_ms=r["plain_ms"], weighted_bound_ms=r["bound_ms"])
+        else:
+            rows.append(r)
     return rows
 
 
@@ -1825,6 +1920,8 @@ KERNEL_ROWS = {
     "ratio_kld_f32 (K4)": ("ratio_kld_f32",),
     "update_select_f32 (K5)": ("update_select_f32",),
     "conv2d_same (K11)": ("conv2d_same_mma_bf16",),
+    "label_components_i16": ("label_components_i16",),
+    "component_sums_f64": ("component_sums_f64",),
 }
 
 
@@ -1883,6 +1980,8 @@ def smoke(pool, t_start: float) -> int:
 
     # -- 3. kernels vs plain
     kernels = check_decode_kernels(raw)
+    torch.cuda.empty_cache()
+    kernels += check_component_kernels(raw)
     torch.cuda.empty_cache()
     kernels += check_dft_kernels(raw, torch.as_tensor(cam_fixed, device="cuda").to(torch.float32))
     torch.cuda.empty_cache()
@@ -2050,7 +2149,8 @@ def smoke(pool, t_start: float) -> int:
     log(f"launch counts on the chromatic path: {chromatic_launches}")
     require(all(chromatic_launches[k] > 0 for k in ("decode_chunk_f32 (K3)", "zy_lowpass_f32 (K1)",
                                                      "x_lowpass_decode_f32 (K2)", "ratio_kld_f32 (K4)",
-                                                     "update_select_f32 (K5)"))
+                                                     "update_select_f32 (K5)", "label_components_i16",
+                                                     "component_sums_f64"))
             and (min(chromatic_launches["dft_zx (K10)"], chromatic_launches["dft_mid_conv (K9)"]) > 0
                  or min(chromatic_launches[k] for k in ("dft_trailing (K6)", "dft_middle (K7)",
                                                         "dft_leading (K8)")) > 0),
@@ -2100,7 +2200,8 @@ def smoke(pool, t_start: float) -> int:
     require(deformed["f1"]["f1"] >= 0.5, "deformed production F1 below 0.5")
     require(all(deformed_launches[k] > 0 for k in (
         "zy_lowpass_f32 (K1)", "x_lowpass_decode_f32 (K2)", "decode_chunk_f32 (K3)", "ratio_kld_f32 (K4)",
-        "update_select_f32 (K5)", "dft_middle (K7)", "dft_mid_conv (K9)", "dft_zx (K10)")),
+        "update_select_f32 (K5)", "dft_middle (K7)", "dft_mid_conv (K9)", "dft_zx (K10)",
+        "label_components_i16", "component_sums_f64")),
         "a kernel of the deformed path never launched")
     landing = bead_landing_case(def_store, raw_def)
     for r, row in landing["rounds"].items():

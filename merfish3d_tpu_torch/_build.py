@@ -27,7 +27,10 @@ from typing import Optional
 _PKG = Path(__file__).parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("decode.cu", "fused_decode.cu", "pfft.cu", "rlgc.cu", "conv2d.cu", "conv2d_mma.cu")
+SOURCES = (
+    "decode.cu", "fused_decode.cu", "pfft.cu", "rlgc.cu", "conv2d.cu", "conv2d_mma.cu",
+    "components.cu",
+)
 HEADERS = ("fft128.cuh", "decode_core.cuh")  # included by the sources; part of the library's hash
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -136,6 +139,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.conv2d_same_mma_bf16.restype = i
     lib.conv2d_same_f32.argtypes = [p] * 4 + [i] * 8 + [p]
     lib.conv2d_same_f32.restype = i
+    lib.label_components_i16.argtypes = [p, i, i, i, p, p]
+    lib.label_components_i16.restype = i
+    lib.component_sums_f64.argtypes = [p, p, p, i, p, p, p, p, i, ll, i, i, i, i, p, p]
+    lib.component_sums_f64.restype = i
 
 
 def kernels() -> ctypes.CDLL:

@@ -1,15 +1,22 @@
-"""Host-side region properties of decoded components (counterpart of the
-numpy half of ``merfish3d_tpu/ops/cc.py``: :class:`SparseIntensity`,
+"""Region properties of decoded components (counterpart of the numpy
+half of ``merfish3d_tpu/ops/cc.py``: :class:`SparseIntensity`,
 :func:`component_stats_host`, :func:`inertia_tensor_eigvals`).
 
 Copied rather than imported: the JAX package cannot be imported without
-JAX. Pure numpy; the decoder pairs it with the native union-find
-labelling in :mod:`merfish3d_tpu_torch.native`.
+JAX. On host arrays it is numpy, paired with the native union-find
+labelling in :mod:`merfish3d_tpu_torch.native`; on tensors the sums come
+from :mod:`.components` on the tensors' device, and numpy only derives
+the statistics from the rows that come down.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
+import torch
+
+from .components import GEOMETRY_COLUMNS, component_sums
 
 
 class SparseIntensity:
@@ -32,20 +39,41 @@ class SparseIntensity:
 
 
 def component_stats_host(
-    decoded: np.ndarray,  # (Z, Y, X) int
+    decoded,  # (Z, Y, X) int array, or int16 tensor
     labels,  # (Z, Y, X) int64 root indices (-1 bg) or sparse (lin, roots)
-    distance: np.ndarray,
-    magnitude: np.ndarray,
-    scaled,  # (bits, Z, Y, X) array OR callable lin -> (bits, n_fg)
+    distance,
+    magnitude,
+    scaled,  # (bits, Z, Y, X) array OR callable lin -> (bits, n_fg), or tensor
     *,
     collect_weighted_centroids: bool = False,
+    size_window: Optional[tuple[float, float]] = None,
 ) -> dict:
-    """Regionprops over the assigned voxels only (numpy bincount): area,
-    centroid, codeword, min distance, mean magnitude, per-bit sums and
-    means and central second moments per component; with
+    """Regionprops over the assigned voxels only: area, centroid,
+    codeword, min distance, mean magnitude, per-bit sums and means and
+    central second moments per component; with
     ``collect_weighted_centroids`` also ``bit_w_coord_sums`` (bits, n, 3),
     each bit's intensity-weighted z, y, x sums (the chromatic estimator's
-    per-bit centroids)."""
+    per-bit centroids). With ``size_window = (least, most)`` only the
+    components of that many voxels are returned.
+
+    Host arrays take the numpy sums (``np.bincount``). Tensors (the
+    labels of :func:`..ops.components.label_components`, float16 distance
+    and magnitude, the (bits, Z, Y, X) intensity tensor) take
+    :func:`..ops.components.component_sums` on their device, the same sums
+    bit for bit, and only the window's rows come to the host."""
+    if isinstance(decoded, torch.Tensor):
+        rows = component_sums(
+            decoded, labels, distance, magnitude, scaled,
+            weighted=collect_weighted_centroids, size_window=size_window,
+        )
+        bits, g = scaled.shape[0], len(GEOMETRY_COLUMNS)
+        sums = {name: rows[:, i] for i, name in enumerate(GEOMETRY_COLUMNS)}
+        sums["codeword"] = sums["codeword"].astype(np.int32)
+        sums["bits"] = rows[:, g:g + bits].T
+        if collect_weighted_centroids:
+            sums["bits_zyx"] = rows[:, g + bits:].reshape(-1, bits, 3).transpose(1, 0, 2)
+        return _stats_from_sums(sums, collect_weighted_centroids)
+
     shape = decoded.shape
     ny, nx = shape[1], shape[2]
     if isinstance(labels, tuple):
@@ -81,15 +109,18 @@ def component_stats_host(
     def wsum(v):
         return np.bincount(idx, weights=v, minlength=n)
 
-    area = wsum(np.ones_like(z))
-    safe = np.maximum(area, 1.0)
-    cz, cy, cx = wsum(z) / safe, wsum(y) / safe, wsum(x) / safe
     dist_fg = np.asarray(distance).ravel()[lin].astype(np.float64)
     order = np.lexsort((dist_fg, idx))
     first_of = np.searchsorted(idx[order], np.arange(n))
-    dist_min = dist_fg[order][first_of]
-    mag_mean = wsum(np.asarray(magnitude).ravel()[lin].astype(np.float64)) / safe
-    codeword = np.asarray(decoded).ravel()[lin[first_idx]].astype(np.int32)
+    sums = {
+        "area": wsum(np.ones_like(z)),
+        "z": wsum(z), "y": wsum(y), "x": wsum(x),
+        "zz": wsum(z * z), "yy": wsum(y * y), "xx": wsum(x * x),
+        "zy": wsum(z * y), "zx": wsum(z * x), "yx": wsum(y * x),
+        "magnitude_sum": wsum(np.asarray(magnitude).ravel()[lin].astype(np.float64)),
+        "distance_min": dist_fg[order][first_of],
+        "codeword": np.asarray(decoded).ravel()[lin[first_idx]].astype(np.int32),
+    }
 
     if callable(scaled):
         bits = scaled.nbits
@@ -100,23 +131,44 @@ def component_stats_host(
         bit_fg = np.stack(
             [np.asarray(scaled[b]).ravel()[lin].astype(np.float64) for b in range(bits)]
         )
-    bit_sums = np.stack([wsum(bit_fg[b]) for b in range(bits)])
+    sums["bits"] = np.stack([wsum(bit_fg[b]) for b in range(bits)])
+    if collect_weighted_centroids:
+        sums["bits_zyx"] = np.stack(
+            [np.stack([wsum(bit_fg[b] * c) for c in (z, y, x)], axis=-1) for b in range(bits)]
+        )
+    if size_window is not None:
+        keep = (sums["area"] >= size_window[0]) & (sums["area"] <= size_window[1])
+        sums = {k: v[..., keep, :] if k == "bits_zyx" else v[..., keep] for k, v in sums.items()}
+    return _stats_from_sums(sums, collect_weighted_centroids)
+
+
+def _stats_from_sums(sums: dict, collect_weighted_centroids: bool) -> dict:
+    """The statistics of :func:`component_stats_host` from a component's
+    float64 sums: ``area``, ``z``/``y``/``x``, the second moments ``zz`` ..
+    ``yx``, ``magnitude_sum``, ``distance_min``, ``codeword``, ``bits``
+    (bits, n) and, with ``collect_weighted_centroids``, ``bits_zyx``
+    (bits, n, 3)."""
+    area = sums["area"]
+    n = area.shape[0]
+    safe = np.maximum(area, 1.0)
+    cz, cy, cx = sums["z"] / safe, sums["y"] / safe, sums["x"] / safe
+    bit_sums = sums["bits"]
     bit_means = bit_sums / safe[None, :]
 
-    m_zz = wsum(z * z) / safe - cz * cz
-    m_yy = wsum(y * y) / safe - cy * cy
-    m_xx = wsum(x * x) / safe - cx * cx
-    m_zy = wsum(z * y) / safe - cz * cy
-    m_zx = wsum(z * x) / safe - cz * cx
-    m_yx = wsum(y * x) / safe - cy * cx
+    m_zz = sums["zz"] / safe - cz * cz
+    m_yy = sums["yy"] / safe - cy * cy
+    m_xx = sums["xx"] / safe - cx * cx
+    m_zy = sums["zy"] / safe - cz * cy
+    m_zx = sums["zx"] / safe - cz * cx
+    m_yx = sums["yx"] / safe - cy * cx
 
     out = {
         "valid": np.ones(n, bool),
         "area": area.astype(np.float32),
         "centroid_zyx": np.stack([cz, cy, cx], axis=1).astype(np.float32),
-        "codeword": codeword,
-        "distance_min": dist_min.astype(np.float32),
-        "magnitude_mean": mag_mean.astype(np.float32),
+        "codeword": sums["codeword"],
+        "distance_min": sums["distance_min"].astype(np.float32),
+        "magnitude_mean": (sums["magnitude_sum"] / safe).astype(np.float32),
         "bit_means": bit_means.astype(np.float32),
         "bit_sums": bit_sums.astype(np.float32),
         "moments": np.stack([m_zz, m_yy, m_xx, m_zy, m_zx, m_yx], axis=1).astype(
@@ -124,9 +176,7 @@ def component_stats_host(
         ),
     }
     if collect_weighted_centroids:
-        out["bit_w_coord_sums"] = np.stack(
-            [np.stack([wsum(bit_fg[b] * c) for c in (z, y, x)], axis=-1) for b in range(bits)]
-        ).astype(np.float32)
+        out["bit_w_coord_sums"] = sums["bits_zyx"].astype(np.float32)
     return out
 
 

@@ -173,6 +173,21 @@ def assign_pixels(best, dist, mag, scaled, shape, *, magnitude_threshold, distan
     )
 
 
+def output_sink(dev: torch.device, on_device: bool):
+    """``(empty, put)`` for assembling a decode's outputs piece by piece:
+    ``empty(shape, dtype_name)`` allocates an output and ``put(t)`` turns a
+    device piece into what is stored in it. With ``on_device`` the outputs
+    are tensors on ``dev`` and the pieces stay there, else host numpy
+    arrays and the pieces are downloaded."""
+    if not on_device:
+        return np.empty, to_host
+
+    def empty(shape, dtype: str):
+        return torch.empty(shape, dtype=getattr(torch, dtype), device=dev)
+
+    return empty, lambda t: t
+
+
 def decode_volume(
     bit_volume,  # (bits, Z, Y, X) tensor or array
     codebook_matrix: np.ndarray,  # (words, bits) raw 0/1
@@ -184,23 +199,26 @@ def decode_volume(
     z_chunk: int = 8,
     return_scaled: bool = True,
     device=None,
+    on_device: bool = False,
 ):
     """Decode a tile volume in z-chunks (device memory bounded by
     ``bits × z_chunk × Y × X`` per launch). A float32 volume's chunks go to K3
     as views, without a copy. Returns host numpy arrays
     (decoded int16, magnitude f16, distance f16, scaled f16 or None), as
-    the reference does. ``device`` defaults to the input tensor's, and to
-    ``cuda`` for a host array."""
+    the reference does; with ``on_device`` the same four as tensors on the
+    decode's device, and nothing is downloaded. ``device`` defaults to the
+    input tensor's, and to ``cuda`` for a host array."""
     vol = as_device_tensor(bit_volume, device)
     dev = vol.device
     cb_t = to_device(normalize_codebook(codebook_matrix).T.copy(), dev)
     bg = to_device(np.asarray(background, np.float32), dev)
     norm = to_device(np.asarray(normalization, np.float32), dev)
     bits, nz, ny, nx = vol.shape
-    decoded = np.empty((nz, ny, nx), np.int16)
-    mag = np.empty((nz, ny, nx), np.float16)
-    dist = np.empty((nz, ny, nx), np.float16)
-    scaled = np.empty((bits, nz, ny, nx), np.float16) if return_scaled else None
+    empty, put = output_sink(dev, on_device)
+    decoded = empty((nz, ny, nx), "int16")
+    mag = empty((nz, ny, nx), "float16")
+    dist = empty((nz, ny, nx), "float16")
+    scaled = empty((bits, nz, ny, nx), "float16") if return_scaled else None
     for z0 in range(0, nz, z_chunk):
         z1 = min(z0 + z_chunk, nz)
         d, m, di, sc = decode_planes(
@@ -209,9 +227,9 @@ def decode_volume(
             distance_threshold=float(distance_threshold),
             return_scaled=return_scaled,
         )
-        decoded[z0:z1] = to_host(d)
-        mag[z0:z1] = to_host(m)
-        dist[z0:z1] = to_host(di)
+        decoded[z0:z1] = put(d)
+        mag[z0:z1] = put(m)
+        dist[z0:z1] = put(di)
         if scaled is not None:
-            scaled[:, z0:z1] = to_host(sc)
+            scaled[:, z0:z1] = put(sc)
     return decoded, mag, dist, scaled

@@ -32,6 +32,7 @@ from .decode import (
     check_decode_inputs,
     decode_chunk_plain,
     normalize_codebook,
+    output_sink,
     pack_codebook,
 )
 from .filters import _gaussian_kernel1d, gaussian_lowpass, symmetric_pad_index
@@ -283,10 +284,12 @@ def fused_decode_volume(
     Returns host numpy (decoded int16, magnitude f16, distance f16,
     scaled): ``scaled_as="array"`` gives the dense f16 (bits, Z, Y, X)
     volume, ``"gather"`` a :class:`SparseIntensity` of the scaled values
-    at the decoded voxels, gathered on the device. ``device`` defaults to
+    at the decoded voxels, gathered on the device. ``scaled_as="device"``
+    returns all four as tensors on the decode's device, the scaled values
+    as the dense f16 volume, and downloads nothing. ``device`` defaults to
     the input tensor's, and to ``cuda`` for a host array."""
-    if scaled_as not in ("array", "gather"):
-        raise ValueError(f"scaled_as must be 'array' or 'gather', got {scaled_as!r}")
+    if scaled_as not in ("array", "gather", "device"):
+        raise ValueError(f"scaled_as must be 'array', 'gather' or 'device', got {scaled_as!r}")
     vol = as_device_tensor(bit_volume, device).to(torch.float32).contiguous()
     dev = vol.device
     bits, nz, ny, nx = vol.shape
@@ -301,6 +304,8 @@ def fused_decode_volume(
     gather = scaled_as == "gather"
     if 3 * vol.numel() * 4 <= memory_budget_bytes:
         d, m, di, s = fused_lowpass_decode(vol, cb_t, bg, norm, **kw)
+        if scaled_as == "device":
+            return d, m, di, s
         decoded = to_host(d)
         if gather:
             lin = np.flatnonzero(decoded >= 0)
@@ -310,12 +315,13 @@ def fused_decode_volume(
         return decoded, to_host(m), to_host(di), to_host(s)
 
     ry = int(4.0 * sigma[1] + 0.5) if sigma[1] > 0 else 0
-    decoded = np.empty((nz, ny, nx), np.int16)
-    mag = np.empty((nz, ny, nx), np.float16)
-    dist = np.empty((nz, ny, nx), np.float16)
+    empty, put = output_sink(dev, scaled_as == "device")
+    decoded = empty((nz, ny, nx), "int16")
+    mag = empty((nz, ny, nx), "float16")
+    dist = empty((nz, ny, nx), "float16")
     fg_lins: list[np.ndarray] = []
     fg_vals: list[np.ndarray] = []
-    scaled = None if gather else np.empty((bits, nz, ny, nx), np.float16)
+    scaled = None if gather else empty((bits, nz, ny, nx), "float16")
     for y0 in range(0, ny, y_slab):
         y1 = min(y0 + y_slab, ny)
         ys, ye = max(0, y0 - ry), min(ny, y1 + ry)
@@ -323,20 +329,20 @@ def fused_decode_volume(
             vol[:, :, ys:ye].contiguous(), cb_t, bg, norm, **kw
         )
         lo, hi = y0 - ys, y1 - ys
-        d_host = to_host(d)
-        decoded[:, y0:y1] = d_host[:, lo:hi]
-        mag[:, y0:y1] = to_host(m[:, lo:hi])
-        dist[:, y0:y1] = to_host(di[:, lo:hi])
+        d_slab = put(d)
+        decoded[:, y0:y1] = d_slab[:, lo:hi]
+        mag[:, y0:y1] = put(m[:, lo:hi])
+        dist[:, y0:y1] = put(di[:, lo:hi])
         if gather:
-            f = np.flatnonzero(d_host[:, lo:hi] >= 0)
+            f = np.flatnonzero(d_slab[:, lo:hi] >= 0)
             if f.size:
                 h = y1 - y0
                 z_f, y_f, x_f = f // (h * nx), (f % (h * nx)) // nx, f % nx
-                slab_lin = (z_f * d_host.shape[1] + lo + y_f) * nx + x_f
+                slab_lin = (z_f * d_slab.shape[1] + lo + y_f) * nx + x_f
                 fg_vals.append(gather_values(s, slab_lin))
                 fg_lins.append((z_f * ny + y0 + y_f) * nx + x_f)
         else:
-            scaled[:, :, y0:y1] = to_host(s[:, :, lo:hi])
+            scaled[:, :, y0:y1] = put(s[:, :, lo:hi])
     if not gather:
         return decoded, mag, dist, scaled
     if fg_lins:

@@ -10,7 +10,11 @@ decodes a stack warped with them.
 Device work runs on the decoder's ``device``. On CUDA, the optimization
 passes decode through kernel K3 (after the plain lowpass) and the final
 decode through the fused kernels K1+K2 — the split the reference makes
-on TPU. On CPU the same calls take the kernels' plain versions.
+on TPU — and the decode's outputs stay on the card, where the components
+are labelled and summed (``csrc/components.cu``); only the rows of the
+components within the size window come down. On CPU the decode takes
+the kernels' plain versions and extraction runs on the host (the native
+labeller and numpy sums), as in the reference.
 
 Not ported: the mesh fan-out, multi-tile duplicate removal, the
 LR filter, 2D mode, masks, z ranges and on-disk resume of the
@@ -29,6 +33,7 @@ from .. import native
 from ..datastore.array_store import ArrayStore
 from ..models.ufish import median_last
 from ..ops.cc import SparseIntensity, component_stats_host, inertia_tensor_eigvals
+from ..ops.components import label_components
 from ..ops.decode import caller_thresholds, decode_volume
 from ..ops.filters import gaussian_lowpass
 from ..ops.fused_decode import fused_decode_volume, gather_values
@@ -149,6 +154,10 @@ class PixelDecoder:
         # (tile, the store's chromatic and flow versions): every calibration
         # save and every flow-field write makes the warped stack stale
         self._warped_memo: Optional[tuple[tuple[int, int, int], torch.Tensor]] = None
+        # on the card the decode's outputs stay there and the components are
+        # labelled and summed there; on the CPU they go through the host's
+        # labeller and numpy sums
+        self._extract_on_device = self._device.type == "cuda"
 
     # ------------------------------------------------------------- codebook
     def _load_codebook(self) -> None:
@@ -303,9 +312,11 @@ class PixelDecoder:
     # --------------------------------------------------------------- decode
     def _device_decode(self, stack: torch.Tensor, *, lowpass_sigma, optimize: bool):
         """Lowpass + nearest-codeword decode of one tile's stack. Returns
-        host (decoded, magnitude, distance, SparseIntensity): the scaled
-        traces for the final decode, the raw lowpassed intensities during
-        normalization optimization."""
+        (decoded, magnitude, distance, intensities): the scaled traces for
+        the final decode, the raw lowpassed intensities during
+        normalization optimization. With ``_extract_on_device`` all four
+        are tensors on the device (the intensities dense), else host
+        arrays with a :class:`SparseIntensity`."""
         norm, bg = self._prepare_normalization_state()
         nb = self._n_merfish_bits
         sigma = tuple(float(s) for s in lowpass_sigma)
@@ -313,15 +324,19 @@ class PixelDecoder:
             magnitude_threshold=self._magnitude_threshold,
             distance_threshold=self._pixel_distance_threshold,
         )
+        on_device = self._extract_on_device
         if not optimize:
             return fused_decode_volume(
                 stack, self._codebook_matrix, bg[:nb], norm[:nb],
-                sigma=sigma, scaled_as="gather", **kw,
+                sigma=sigma, scaled_as="device" if on_device else "gather", **kw,
             )
         lp = gaussian_lowpass(stack, sigma=sigma)
         decoded, mag, dist, _ = decode_volume(
-            lp, self._codebook_matrix, bg[:nb], norm[:nb], return_scaled=False, **kw
+            lp, self._codebook_matrix, bg[:nb], norm[:nb], return_scaled=False,
+            on_device=on_device, **kw
         )
+        if on_device:
+            return decoded, mag, dist, lp
         lin = np.flatnonzero(decoded >= 0)
         return decoded, mag, dist, SparseIntensity(lin, gather_values(lp, lin))
 
@@ -344,35 +359,41 @@ class PixelDecoder:
         """Connected components + region features → decoded-features
         table, in the reference's column order."""
         with profiling.span("decoder.extract"):
-            decoded_i32 = np.ascontiguousarray(decoded, np.int32)
+            if isinstance(decoded, torch.Tensor):
+                label = label_components
+            else:
+                decoded = np.ascontiguousarray(decoded, np.int32)
+                distance = np.asarray(distance, np.float32)
+                magnitude = np.asarray(magnitude, np.float32)
+                label = native.label_components_sparse
             with profiling.span("decoder.extract.label"):
-                labels = native.label_components_sparse(decoded_i32)
+                labels = label(decoded)
             with profiling.span("decoder.extract.stats"):
                 stats = component_stats_host(
-                    decoded_i32,
+                    decoded,
                     labels,
-                    np.asarray(distance, np.float32),
-                    np.asarray(magnitude, np.float32),
+                    distance,
+                    magnitude,
                     intensity,
                     collect_weighted_centroids=self._collect_chromatic_centroids,
+                    size_window=(self._minimum_pixels, self._maximum_pixels),
                 )
             del labels
             with profiling.span("decoder.extract.table"):
                 return self._barcode_table(stats, tile_idx, state)
 
     def _barcode_table(self, stats: dict, tile_idx: int, state: dict) -> dict:
-        """The decoded-features table of a tile's component statistics:
-        components within the size window, with their region features,
+        """The decoded-features table of a tile's component statistics
+        (the components within the size window, which
+        ``component_stats_host`` applied), with their region features,
         global coordinates and signal columns."""
         area = stats["area"]
-        keep = (area >= self._minimum_pixels) & (area <= self._maximum_pixels)
-        if not keep.any():
+        if not len(area):
             return self._empty_barcode_table()
-        area = area[keep]
-        centroid = stats["centroid_zyx"][keep]
-        codeword = stats["codeword"][keep]
-        bm = stats["bit_means"][:, keep].T.astype(np.float64)  # (n, bits)
-        eig = inertia_tensor_eigvals(stats["moments"][keep], area)
+        centroid = stats["centroid_zyx"]
+        codeword = stats["codeword"]
+        bm = stats["bit_means"].T.astype(np.float64)  # (n, bits)
+        eig = inertia_tensor_eigvals(stats["moments"], area)
         n_on = self._on_bits_1based.shape[1]
         on_sel = self._on_bits_1based[codeword]
 
@@ -382,8 +403,8 @@ class PixelDecoder:
         }
         for i in range(3):
             cols[f"inertia_tensor_eigvals-{i}"] = eig[:, i].astype(np.float64)
-        cols["distance_min"] = stats["distance_min"][keep].astype(np.float64)
-        cols["magnitude_mean"] = stats["magnitude_mean"][keep].astype(np.float64)
+        cols["distance_min"] = stats["distance_min"].astype(np.float64)
+        cols["magnitude_mean"] = stats["magnitude_mean"].astype(np.float64)
         cols["barcode_id"] = codeword.astype(np.int32) + 1
         cols["gene_id"] = self._gene_ids[codeword]
         cols["tile_idx"] = np.full(len(area), int(tile_idx), np.int64)
@@ -393,7 +414,7 @@ class PixelDecoder:
             cols[f"bit{b + 1:02d}_mean_intensity"] = bm[:, b]
         if self._collect_chromatic_centroids:
             cols.update(self._on_bit_centroid_columns(
-                stats["bit_w_coord_sums"][:, keep], stats["bit_sums"][:, keep], on_sel
+                stats["bit_w_coord_sums"], stats["bit_sums"], on_sel
             ))
         cols["tile_z"] = np.round(z, 0).astype(np.int64)
         cols["tile_y"] = np.round(y, 0).astype(np.int64)

@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels of merfish3d_tpu_torch against their plain
 torch versions, on the card (decode K1-K3, DFT K6-K10, RLGC K4 and K5,
-the U-FISH convolution K11).
+the U-FISH convolution K11), and the component labeller and sums against
+the host's labeller and numpy sums.
 
 Needs a CUDA device and nvcc; skips without them. Imports neither JAX
 nor the JAX package, so it runs where those are absent:
@@ -669,3 +670,153 @@ def test_warp_classes_match_cpu(cuda, kind):
     got = warp.warp_affine(image.to(cuda), **kw)
     assert got.device.type == "cuda"
     torch.testing.assert_close(got.cpu(), warp.warp_affine(image, **kw), rtol=0, atol=1e-5 * 1000)
+
+
+def _labels_on_card(cuda, decoded):
+    from merfish3d_tpu_torch.ops import components as comp
+
+    lin, roots = comp.label_components(torch.as_tensor(decoded, device=cuda))
+    torch.cuda.synchronize()
+    return lin.cpu().numpy(), roots.cpu().numpy()
+
+
+@pytest.mark.parametrize("name", [
+    "empty", "one_voxel", "faces_and_corners", "diagonals", "stripes", "block_and_snake",
+    "random_sparse", "random_dense", "tile",
+])
+def test_labeller_matches_native(cuda, launches, name):
+    """``label_components_i16``'s components are the native labeller's, in
+    its order: every foreground voxel's root is the smallest linear index
+    of the native component it lies in. ``block_and_snake`` holds a
+    component of 8000 voxels, far past a thread block; ``tile`` is a
+    production tile's size, (16, 1024, 1024), ~3 % foreground."""
+    from torch_extract_cases import CASES, native_roots, spot_volume
+
+    decoded = spot_volume() if name == "tile" else CASES[name]
+    lin, roots = _labels_on_card(cuda, decoded)
+    want_lin, want_roots = native_roots(decoded)
+    np.testing.assert_array_equal(lin, want_lin)
+    np.testing.assert_array_equal(roots, want_roots)
+    assert launches("label_components_i16") == 1
+    if name == "tile":
+        again = _labels_on_card(cuda, decoded)
+        np.testing.assert_array_equal(again[1], roots)
+
+
+def test_labeller_matches_plain(cuda):
+    from merfish3d_tpu_torch.ops import components as comp
+    from torch_extract_cases import random_volume
+
+    decoded = torch.as_tensor(random_volume((6, 40, 70), fg=0.4, words=2, seed=9))
+    got = comp.label_volume_cuda(decoded.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), comp.label_volume_plain(decoded))
+
+
+def _stats_inputs(shape, *, bits, half, seed=0):
+    """Float16 distance and magnitude, and (bits, Z, Y, X) intensities of
+    wide dynamic range, so any change of summation order shows."""
+    rng = np.random.default_rng(seed)
+    dist = rng.random(shape, dtype=np.float32).astype(np.float16)
+    mag = (rng.random(shape, dtype=np.float32) * 4).astype(np.float16)
+    vals = rng.random((bits, *shape), dtype=np.float32) - 0.5
+    vals *= np.exp2(rng.integers(-12, 12, (bits, *shape), dtype=np.int8), dtype=np.float32)
+    return dist, mag, vals.astype(np.float16) if half else vals
+
+
+def _host_stats(decoded, dist, mag, vals, **kw):
+    """``component_stats_host`` through the host path: native labels,
+    numpy sums."""
+    from merfish3d_tpu_torch import native
+    from merfish3d_tpu_torch.ops.cc import component_stats_host
+
+    dec32 = decoded.astype(np.int32)
+    return component_stats_host(dec32, native.label_components_sparse(dec32), dist.astype(np.float32),
+                                mag.astype(np.float32), vals, **kw)
+
+
+def _card_stats(cuda, decoded, dist, mag, vals, **kw):
+    """``component_stats_host`` through the card's labeller and sums."""
+    from merfish3d_tpu_torch.ops import components as comp
+    from merfish3d_tpu_torch.ops.cc import component_stats_host
+
+    dec_t = torch.as_tensor(decoded, device=cuda)
+    return component_stats_host(
+        dec_t, comp.label_components(dec_t), torch.as_tensor(dist, device=cuda),
+        torch.as_tensor(mag, device=cuda), torch.as_tensor(vals, device=cuda), **kw,
+    )
+
+
+@pytest.mark.parametrize("window", [None, (4.0, 40.0)])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("half", [False, True])
+def test_component_sums_match_host_bit_for_bit(cuda, launches, half, weighted, window):
+    from torch_extract_cases import random_volume
+
+    decoded = random_volume((6, 30, 40), fg=0.4, words=3, seed=3)
+    inputs = _stats_inputs(decoded.shape, bits=6, half=half)
+    kw = dict(collect_weighted_centroids=weighted, size_window=window)
+    want = _host_stats(decoded, *inputs, **kw)
+    got = _card_stats(cuda, decoded, *inputs, **kw)
+    assert list(got) == list(want) and len(want["area"]) > 50
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert launches("component_sums_f64") == 1 and launches("label_components_i16") == 1
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_component_sums_at_tile_size(cuda, launches, weighted):
+    """A production tile's size, 16 bits of float16 (the final decode's
+    scaled values), the decoder's window: bit-equal to the host, twice;
+    ``extract.components`` counts every component before the window."""
+    from merfish3d_tpu_torch.utils import profiling
+    from torch_extract_cases import native_roots, spot_volume
+
+    decoded = spot_volume(seed=4)
+    inputs = _stats_inputs(decoded.shape, bits=16, half=True, seed=5)
+    kw = dict(collect_weighted_centroids=weighted, size_window=(16.0, 500.0))
+    want = _host_stats(decoded, *inputs, **kw)
+    got = _card_stats(cuda, decoded, *inputs, **kw)
+    again = _card_stats(cuda, decoded, *inputs, **kw)
+    assert len(want["area"]) > 1000
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        np.testing.assert_array_equal(again[k], want[k], err_msg=k)
+    n_components = np.unique(native_roots(decoded)[1]).size
+    counters = profiling.snapshot()["counters"]
+    assert counters["extract.components"]["total"] == 2 * n_components
+    assert launches("component_sums_f64") == 2
+
+
+def test_decoder_tables_on_card_match_host_route(cuda, launches):
+    """A small tile decoded on the card: the tables through the device
+    extraction equal, row for row and value for value, those through the
+    host extraction the decoder takes on the CPU, with the chromatic
+    centroids."""
+    import copy
+
+    from merfish3d_tpu_torch.cli.simulation.convert_simulation_to_experiment import generate_raw_experiment
+    from merfish3d_tpu_torch.cli.simulation.convert_to_datastore import convert_data
+    from merfish3d_tpu_torch.pipeline.decoder import PixelDecoder
+    from merfish3d_tpu_torch.pipeline.registration import DataRegistration
+
+    store = convert_data(generate_raw_experiment(shape=(12, 96, 96), seed=11, distribution="cells"), device=cuda)
+    DataRegistration(store, device=cuda, decon_fiducial=False, decon_readout=False,
+                     ufish_model="dog").register_all_tiles()
+    tables = []
+    for on_device in (False, True):
+        s = copy.deepcopy(store)
+        decoder = PixelDecoder(s, device=cuda, minimum_pixels=4, magnitude_threshold=(0.9, 10.0),
+                               estimate_chromatic_affines=True)
+        decoder._extract_on_device = on_device
+        decoder.optimize_normalization_by_decoding(n_random_tiles=1, n_iterations=2)
+        filtered = decoder.decode_all_tiles()
+        tables.append([*(s.iteration_checkpoints[i][0] for i in sorted(s.iteration_checkpoints)),
+                       s.decoded_tables[0], filtered])
+    assert launches("label_components_i16") == launches("component_sums_f64") == 3
+    for got, want in zip(*tables[::-1]):
+        assert list(got) == list(want) and len(want["area"]) > 20
+        for k in want:
+            a, b = np.asarray(got[k]), np.asarray(want[k])
+            assert a.dtype == b.dtype, k
+            assert np.array_equal(a, b, equal_nan=a.dtype.kind == "f"), k
