@@ -45,9 +45,9 @@ def readings(name: str, seeds, control_seeds, device: str = "cuda", config_overr
         config = {**config, **config_override}
     if device == "cuda":
         require_cards(entry["chips"])
-    pipe = Pipeline(workload, config, device)
     warm = False
     for seed in sorted(set(seeds) | set(control_seeds)):
+        pipe = Pipeline(workload, config, device, seed=seed)  # with the seed's own drawn weights, if any
         tile = render_tile(config, seed, 0, device)
         if seed in seeds:
             if not warm:

@@ -3,8 +3,9 @@ reference.
 
 The reference follows the run in two stages. Registration: the reference
 registers, deconvolves and scores the same raw tile itself, and the run's
-flow fields, stored deconvolved stack and stored spot probabilities (its
-handoff to the decode) are held to the reference's own, over every readout bit. Decode: the reference
+round shifts, flow fields, stored fiducials, stored deconvolved stack and
+stored spot probabilities (its handoff to the decode) are held to the
+reference's own, over every round and readout bit. Decode: the reference
 decodes the run's handoff, following the run's own state from pass to
 pass (:func:`.reference.chain.replay_decode`: the normalization vectors
 and chromatic affines each pass uses are worked out from the run's table
@@ -25,6 +26,10 @@ Each number has a limit of its own in the cell's workload file:
   summed over the rounds;
 - ``decon_l2``: the L2 norm of the gap between the stored deconvolved
   stacks, over the reference's;
+- ``fid_decon_l2``: with fiducial deconvolution, the same over every
+  round's stored fiducial (round 0 deconvolved, the moving rounds
+  deconvolved and warped): the round shifts move only by whole tenths of
+  a pixel, so a fault in the fiducials' values can leave them unmoved;
 - ``prob_l1``: the L1 norm of the gap between the stored spot
   probabilities (u8), over the reference's;
 - ``affine``: the largest gap between the chromatic affines' entries
@@ -61,6 +66,7 @@ class TileOutput:
     transforms: dict  # round -> 4x4 µm
     flows: dict  # round -> (field (3, fz, fy, fx), attrs)
     registered: dict  # bit -> u16 (Z, Y, X)
+    fiducials: dict  # round -> u16 (Z, Y, X), registered into round 0's frame
     predictor: dict  # bit -> u8 (Z, Y, X)
     table: Optional[dict] = None  # the filtered decoded table
     decoded: Optional[dict] = None  # the final table before the filter
@@ -80,6 +86,7 @@ def capture(store, table=None) -> TileOutput:
         transforms={r: np.asarray(t, np.float64) for (_, r), t in store.round_transforms.items()},
         flows={r: flow for (_, r), flow in store.flow_fields.items()},
         registered={b: v for (_, b), v in store.registered.items()},
+        fiducials={r: v for (_, r), v in store.fiducial_registered.items()},
         predictor={b: v for (_, b), v in store.feature_predictor.items()},
         table=table,
         decoded=store.decoded_tables.get(0),
@@ -105,7 +112,8 @@ def shift_residual_px(got: TileOutput, tile) -> float:
                for r in range(len(tile.round_shifts_px_zyx)))
 
 
-def registration_gaps(got: TileOutput, want: TileOutput, tile, *, decon: bool, flow: bool) -> dict:
+def registration_gaps(got: TileOutput, want: TileOutput, tile, *, decon: bool, flow: bool,
+                      fid_decon: bool = False) -> dict:
     """The handoff of ``got`` held to the reference's own registration of
     ``tile``."""
     spacing = np.asarray(tile.voxel_size_zyx_um, np.float64)
@@ -120,6 +128,8 @@ def registration_gaps(got: TileOutput, want: TileOutput, tile, *, decon: bool, f
                                  for r in want.flows)
             out["flow_valid"] = float(sum(abs(int(got.flows[r][1]["valid_flow_vectors"])
                                               - int(want.flows[r][1]["valid_flow_vectors"])) for r in want.flows))
+    if fid_decon:
+        out["fid_decon_l2"] = _rel_norm([(got.fiducials[r], v) for r, v in want.fiducials.items()], 2)
     if decon:
         out["decon_l2"] = _rel_norm([(got.registered[b], v) for b, v in want.registered.items()], 2)
     out["prob_l1"] = _rel_norm([(got.predictor[b], v) for b, v in want.predictor.items()], 1)

@@ -48,6 +48,25 @@ def rlgc_unchanged():
     return _patched(registration, "rlgc_batch", make)
 
 
+def fiducial_rlgc_unchanged():
+    """A step that returns its state unchanged: every fiducial solve (round
+    0's single solve through ``chunked_rlgc`` and the moving rounds' batch
+    solves) hands back the raw counts; the readout solves run as they are."""
+    from merfish3d_tpu_torch.pipeline import registration
+
+    def raw(images, psf, **kw):
+        out = torch.as_tensor(images).to(torch.float32)
+        return (out, [0] * len(out)) if kw.get("return_iters") else out
+
+    def make(inner):
+        def unchanged(self, tile):
+            with _patched(registration, "rlgc_batch", lambda _: raw), \
+                    _patched(registration, "chunked_rlgc", lambda _: raw):
+                return inner(self, tile)
+        return unchanged
+    return _patched(registration.DataRegistration, "_generate_registrations", make)
+
+
 def half_the_bits():
     """Half of the batch left out, the mean taken over the rest: the
     second half of the decode's bit stack replaced by the first half's
@@ -80,4 +99,5 @@ def altered_answer():
     return _patched(decoder.PixelDecoder, "decode_all_tiles", make)
 
 
-FAULTS = {f.__name__: f for f in (registration_unchanged, rlgc_unchanged, half_the_bits, altered_answer)}
+FAULTS = {f.__name__: f for f in (registration_unchanged, rlgc_unchanged, fiducial_rlgc_unchanged, half_the_bits,
+                                  altered_answer)}

@@ -15,7 +15,11 @@ around the program's calls and ``torch.profiler`` records the window.
 After the window a tile drawn from the seed is run through the plain
 reference (:mod:`.reference`) and held to it (:mod:`.compare`). Both
 sides take the same options: the workload file's ``registration`` and
-``decode`` entries over those its configuration implies. The last line
+``decode`` entries over those its configuration implies. A configuration
+whose ``decode`` names ``predictor_weights`` scores spots with a U-FISH
+network drawn from the seed (:mod:`.weights`): the program reads it from
+the checkpoint file the run writes (its ``ufish_checkpoint`` option), the
+reference is handed the same dict. The last line
 of standard output is the result, as JSON; an end-to-end metric named
 ``<quantity>.<suffix>`` reports the quantity (``f1.deformed`` is ``f1``).
 """
@@ -25,8 +29,11 @@ from __future__ import annotations
 import argparse
 import importlib.util
 import json
+import shutil
 import sys
+import tempfile
 import time
+import weakref
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Optional
@@ -95,11 +102,22 @@ class Pipeline:
     workload: dict
     config: dict
     device: str
+    seed: int = 0
+    ufish_variables: Optional[dict] = None  # the drawn U-FISH network, if the configuration asks for one
+    checkpoint: Optional[Path] = None  # the file the run wrote it to for the program
 
     def __post_init__(self):
         self.convert = importlib.import_module(f"{PORT}.cli.simulation.convert_to_datastore")
         self.registration = importlib.import_module(f"{PORT}.pipeline.registration")
         self.pixeldecode = importlib.import_module(f"{PORT}.cli.simulation.pixeldecode")
+        spec = self.config["decode"].get("predictor_weights")
+        if spec is not None:
+            from .weights import draw_ufish, write_checkpoint
+
+            self.ufish_variables = draw_ufish(self.seed, spec["base_features"], spec["depths"], spec["up_mode"])
+            folder = tempfile.mkdtemp(prefix="ufish-")  # under TMPDIR; removed with the pipeline or at exit
+            weakref.finalize(self, shutil.rmtree, folder, True)
+            self.checkpoint = write_checkpoint(self.ufish_variables, Path(folder) / "ufish.pkl")
 
     def registration_options(self) -> dict:
         """``DataRegistration``'s options, for the program and the
@@ -107,6 +125,20 @@ class Pipeline:
         c = self.config
         return dict(ufish_model=c["decode"]["predictor"], deformable_registration=c["deformable_registration"],
                     **self.workload["registration"])
+
+    def program_registration_options(self) -> dict:
+        """The shared options, and the drawn network's checkpoint file."""
+        options = self.registration_options()
+        if self.checkpoint is not None:
+            options["ufish_checkpoint"] = str(self.checkpoint)
+        return options
+
+    def reference_registration_options(self) -> dict:
+        """The shared options, and the drawn network itself."""
+        options = self.registration_options()
+        if self.ufish_variables is not None:
+            options["ufish_variables"] = self.ufish_variables
+        return options
 
     def decode_options(self) -> dict:
         """``decode_pixels``'s options, for the program and the reference
@@ -124,7 +156,8 @@ class Pipeline:
         import torch
 
         store = self.convert.convert_data(tile, device=self.device)
-        self.registration.DataRegistration(store, device=self.device, **self.registration_options()).register_all_tiles()
+        self.registration.DataRegistration(store, device=self.device,
+                                           **self.program_registration_options()).register_all_tiles()
         table = self.pixeldecode.decode_pixels(store, device=self.device, num_tiles=1, **self.decode_options())
         if torch.device(self.device).type == "cuda":
             torch.cuda.synchronize()
@@ -137,7 +170,7 @@ class Pipeline:
         from .reference.registration import DataRegistration
 
         store = convert_data(tile)
-        DataRegistration(store, device=self.device, **self.registration_options()).register_all_tiles()
+        DataRegistration(store, device=self.device, **self.reference_registration_options()).register_all_tiles()
         return store
 
     def reference_decode(self, store):
@@ -155,7 +188,8 @@ class Pipeline:
         t0 = time.perf_counter()
         options = self.registration_options()
         numbers = registration_gaps(got, capture(self.reference_registration(tile)), tile,
-                                    decon=options["decon_readout"], flow=options["deformable_registration"])
+                                    decon=options["decon_readout"], flow=options["deformable_registration"],
+                                    fid_decon=options.get("decon_fiducial", True))
         t1 = time.perf_counter()
         store = handoff_store(tile, got)
         passes, final = replay_decode(store, [concat(p) for p in got.passes], device=self.device,
@@ -242,7 +276,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *, t_start: floa
     end_to_end, per_layer = cell_metrics(name)
     log = lambda msg: print(msg, file=sys.stderr, flush=True)  # noqa: E731
 
-    pipe = Pipeline(workload, config, device)
+    pipe = Pipeline(workload, config, device, seed=seed)
     t_import = time.perf_counter()
     pool = [render_tile(config, seed, k, device) for k in range(workload["pool_tiles"])]
     t_render = time.perf_counter()

@@ -1,5 +1,7 @@
-"""decon_ms_per_iter_vol: milliseconds of the readout RLGC solves
-(synchronized) over the volume-iterations they ran."""
+"""decon_ms_per_iter_vol: milliseconds of the registration's RLGC batch
+solves (synchronized) over the volume-iterations they ran: the readout
+solves, and with fiducial deconvolution the moving rounds' batch solves
+too; round 0's single fiducial solve lies outside (:mod:`benchmark.solves`)."""
 
 from benchmark.solves import SPAN, install  # noqa: F401
 

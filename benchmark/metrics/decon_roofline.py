@@ -1,7 +1,8 @@
-"""decon_roofline: the least time of the readout RLGC solves' work
+"""decon_roofline: the least time of the RLGC batch solves' work
 (:func:`benchmark.roofline.rlgc_least_seconds` at each solve's padded
 shape and iterations) over their synchronized wall, in percent of the
-card's published peak (H100 SXM, 700 W)."""
+card's published peak (H100 SXM, 700 W); the solves are those
+:mod:`benchmark.solves` names."""
 
 from benchmark.roofline import rlgc_least_seconds
 from benchmark.solves import SPAN, install  # noqa: F401

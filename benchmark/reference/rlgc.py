@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from .fftutils import (
+    axis_linear_fft_padding,
     c_conj,
     c_mul,
     enforce_symmetric_boundary,
@@ -36,6 +37,13 @@ from .precision import q
 
 MIN_STOP_ITERS = 3
 _EPS_KLD = 1e-4
+
+# the program's batch and crop budgets, which choose its solves and so
+# their seeds
+_BUDGET_PADDED_VOXELS = 9.0e7
+_BATCH_F32_BUDGET = 2.2e9
+_PAIR_WORKING_SET_BUFFERS = 16.0
+_MAX_BATCH = 32
 
 
 def _popcount32(v: torch.Tensor) -> torch.Tensor:
@@ -131,3 +139,28 @@ def rlgc_batch(images: torch.Tensor, psf, *, seed: int, max_iters: int):
         out[i] = remove_padding_zyx(recon, pad_width)
         iters.append(n)
     return out, iters
+
+
+def max_batch(image_shape, psf_shape) -> int:
+    """How many volumes of this shape one batch solve of the program takes."""
+    padded = 1
+    for n, s in zip(image_shape, psf_shape):
+        padded *= int(n) + sum(axis_linear_fft_padding(int(n), s))
+    b = int((_BATCH_F32_BUDGET / padded - _PAIR_WORKING_SET_BUFFERS) // 2.0)
+    return max(1, min(b, _MAX_BATCH))
+
+
+def auto_crop_yx(image_shape, psf_shape) -> int:
+    """The lateral crop of the program's single-volume solve: the largest
+    whose padded solve, a halo of twice the PSF's support included, fits
+    the budget."""
+    nz = int(image_shape[0])
+    pz = nz + sum(axis_linear_fft_padding(nz, psf_shape[0]))
+    halo_y, halo_x = 2 * int(psf_shape[1]), 2 * int(psf_shape[2])
+    for crop in (4096, 3072, 2048, 1536, 1280, 1024, 768, 512, 384, 256):
+        ey, ex = crop + halo_y, crop + halo_x
+        py = ey + sum(axis_linear_fft_padding(ey, psf_shape[1]))
+        px = ex + sum(axis_linear_fft_padding(ex, psf_shape[2]))
+        if pz * py * px <= _BUDGET_PADDED_VOXELS:
+            return crop
+    return 256

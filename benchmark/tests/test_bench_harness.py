@@ -41,6 +41,8 @@ def test_every_file_loads_by_name(cell):
     numbers = {"shift_px", "prob_l1", "table_miss", "table_values", "gene_swaps"}
     if workload["registration"]["decon_readout"]:
         numbers.add("decon_l2")
+    if workload["registration"].get("decon_fiducial", True):
+        numbers.add("fid_decon_l2")
     if config["deformable_registration"]:
         numbers |= {"flow_px", "flow_valid"}
     if config["estimate_chromatic_affines"]:
@@ -92,6 +94,8 @@ def test_both_sides_take_the_same_options(cell):
     _, workload, config = harness.load_cell(cell)
     pipe = harness.Pipeline(workload, config, "cpu")
     for options, sides in ((pipe.registration_options(), (Program, Reference)),
+                           (pipe.program_registration_options(), (Program,)),
+                           (pipe.reference_registration_options(), (Reference,)),
                            (pipe.decode_options(), (program_decode, reference_decode))):
         for side in sides:
             assert set(options) <= set(inspect.signature(side).parameters)
@@ -99,7 +103,10 @@ def test_both_sides_take_the_same_options(cell):
     assert override.decode_options()["estimate_chromatic_affines"] is True
 
 
-@pytest.mark.parametrize("option", [{"decon_fiducial": True}, {"ufish_model": "simfish"}])
+@pytest.mark.parametrize("option", [
+    {"ufish_model": "simfish"},  # a U-FISH network with no weights to score with
+    {"decon_fiducial": True, "crop_yx_decon": 64},  # a lateral-tiled single-volume solve
+], ids=["cnn_without_weights", "lateral_tiled_solve"])
 def test_the_reference_refuses_what_it_has_no_plain_version_of(option):
     from benchmark.reference.chain import convert_data
     from benchmark.reference.registration import DataRegistration
@@ -108,7 +115,7 @@ def test_the_reference_refuses_what_it_has_no_plain_version_of(option):
     tile = render_tile({**config, **SMALL}, 3, 0, "cpu")
     options = {**harness.Pipeline(workload, config, "cpu").registration_options(), **option}
     with pytest.raises(NotImplementedError):
-        DataRegistration(convert_data(tile), device="cpu", **options)
+        DataRegistration(convert_data(tile), device="cpu", **options).register_all_tiles()
 
 
 def test_swapped_gene_reads_two_and_a_moved_row_none():
