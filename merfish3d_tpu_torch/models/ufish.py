@@ -21,6 +21,7 @@ or converted from a published ONNX file (:mod:`.ufish_onnx`);
 
 from __future__ import annotations
 
+import functools
 import os
 import pickle
 import warnings
@@ -33,6 +34,7 @@ from torch import nn
 
 from ..ops.conv2d import PackedWeights, conv2d_same, pack_weights
 from ..ops.filters import gaussian_lowpass
+from ..utils import profiling
 from .ufish_onnx import load_ufish_onnx_params, seeded_onnx_initializers, structural_onnx_to_flax
 
 UFISH_MODEL_ALIASES = {
@@ -257,6 +259,22 @@ class UFishNet(nn.Module):
 
 
 # ---------------------------------------------------------- the predictor
+@functools.lru_cache(maxsize=None)
+def _percentile_taps(n: int) -> tuple[tuple[int, int, float, float], ...]:
+    """(low index, high index, low weight, high weight) of the 1st and
+    99.8th percentiles among ``n`` sorted values: the position
+    ``pct/100 · (n − 1)``, its floor and ceiling, and the linear weights,
+    all in f32 on the host as ``jnp.percentile`` computes them. Python
+    numbers, so no call uploads them."""
+    f32 = np.float32
+    pos = np.array([1.0, 99.8], f32) / f32(100) * (f32(n) - f32(1))
+    low, high = np.floor(pos), np.ceil(pos)
+    hw = pos - low
+    lw = f32(1) - hw
+    return tuple((min(max(int(a), 0), n - 1), min(max(int(b), 0), n - 1), float(c), float(d))
+                 for a, b, c, d in zip(low, high, lw, hw))
+
+
 def percentile_normalize(planes: torch.Tensor) -> torch.Tensor:
     """Per-plane U-FISH input normalization of (N, Y, X) f32 planes:
     ``clip((p − p1)/max(p99.8 − p1, 1e-6), 0, 1)`` with both percentiles
@@ -264,15 +282,8 @@ def percentile_normalize(planes: torch.Tensor) -> torch.Tensor:
     (``torch.quantile`` refuses inputs over 2**24 elements)."""
     flat = planes.reshape(planes.shape[0], -1)
     s = torch.sort(flat, dim=-1).values
-    n = torch.tensor(float(s.shape[-1]), dtype=torch.float32)
-    pos = torch.tensor([1.0, 99.8], dtype=torch.float32) / 100 * (n - 1)
-    low, high = torch.floor(pos), torch.ceil(pos)
-    hw = pos - low
-    lw = 1.0 - hw
-    lo_i = low.clamp(0, n - 1).long().to(planes.device)
-    hi_i = high.clamp(0, n - 1).long().to(planes.device)
-    q = s[:, lo_i] * lw.to(planes.device) + s[:, hi_i] * hw.to(planes.device)  # (N, 2)
-    lo, hi = q[:, 0, None, None], q[:, 1, None, None]
+    lo, hi = (s[:, a, None, None] * lw + s[:, b, None, None] * hw
+              for a, b, lw, hw in _percentile_taps(s.shape[-1]))
     return torch.clamp((planes - lo) / torch.clamp(hi - lo, min=1e-6), 0.0, 1.0)
 
 
@@ -329,12 +340,15 @@ class UFishPredictor(nn.Module):
         ix = _reflect_index(nx, px, planes.device)
         out = torch.empty((n, ny, nx), dtype=torch.float32, device=planes.device)
         for start in range(0, n, bs):
-            chunk = percentile_normalize(planes[start : start + bs])
-            m = chunk.shape[0]
-            chunk = chunk[:, iy][:, :, ix]
-            if m < bs:
-                chunk = torch.cat([chunk, chunk.new_zeros((bs - m, py, px))])
-            prob = self.net(chunk[..., None].to(torch.bfloat16))[..., 0]
+            with profiling.span("ufish.normalize"):
+                chunk = percentile_normalize(planes[start : start + bs])
+                m = chunk.shape[0]
+                chunk = chunk[:, iy][:, :, ix]
+                if m < bs:
+                    chunk = torch.cat([chunk, chunk.new_zeros((bs - m, py, px))])
+            with profiling.span("ufish.net"):
+                profiling.count("ufish.planes", m)
+                prob = self.net(chunk[..., None].to(torch.bfloat16))[..., 0]
             out[start : start + m] = prob[:m, :ny, :nx].float()
         return out
 
