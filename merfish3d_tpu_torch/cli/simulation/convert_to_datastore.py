@@ -40,9 +40,17 @@ def convert_data(
     injection_affine=None,
     device="cuda",
 ) -> ArrayStore:
-    """Readout bits become the store's corrected images (clipped to the
-    uint16 range, as the reference stores them); fiducial rounds become
-    its corrected fiducial images. The channel PSFs are the reference's:
+    """Readout bits (uint16, as :class:`RawExperiment` holds them) become
+    the store's corrected images; fiducial rounds become its corrected
+    fiducial images. uint16 already lies in the range the reference clips
+    to, so the bits are stored as read-only views of ``raw.bits``, with no
+    pass over the values (counted by ``datastore.clip.passthrough``, once
+    an image); with injection they are stored as one private, writable
+    copy instead. Bits of another dtype are refused (``TypeError``).
+
+    The store holds views of ``raw.bits`` (without injection) and of
+    ``raw.fiducial``: the caller must not write to those arrays while the
+    store is in use. The channel PSFs are the reference's:
     Gaussian, (15, 15, 15), at the fiducial emission wavelength and then
     at each readout emission wavelength in order.
 
@@ -54,7 +62,12 @@ def convert_data(
     that undoes the injection is ``A`` itself. The store keeps ``A``."""
     with profiling.span("datastore.convert"):
         with profiling.span("datastore.clip"):
-            corrected = np.clip(raw.bits.astype(np.float32), 0, 65535).astype(np.uint16)
+            if inject_chromatic_aberration:
+                corrected = raw.bits.copy()
+            else:
+                corrected = raw.bits.view()
+                corrected.flags.writeable = False
+                profiling.count("datastore.clip.passthrough", raw.bits.shape[0] * raw.bits.shape[1])
         if inject_chromatic_aberration:
             if injection_affine is None:
                 injection_affine = make_injection_affine()
