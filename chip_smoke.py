@@ -459,7 +459,7 @@ def check_component_kernels(raw) -> list[dict]:
     passed = dec.decode_volume(gaussian_lowpass(tile, sigma=sigma), raw.codebook, bg, nm,
                                return_scaled=False, on_device=True, **kw)[0]
     decoded, mag, dist, scaled = fused_decode_volume(tile, raw.codebook, bg, nm, sigma=sigma,
-                                                     scaled_as="device", **kw)
+                                                     on_device=True, **kw)
     del tile
     torch.cuda.empty_cache()
 
@@ -1374,22 +1374,23 @@ def camera_frame_route(image, psf, *, plain: bool, crop_yx=2048, max_iters: int 
 
     from merfish3d_tpu_torch.ops import rlgc
 
-    core = rlgc._rlgc_core
+    solve = rlgc.rlgc
     tiles = []
 
-    def recorded(observed, *args, **kwargs):
+    def recorded(image, psf, **kwargs):
         before = kernel_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        recon, n = core(observed, *args, **kwargs)
+        recon, n = solve(image, psf, return_iters=True, **kwargs)
         torch.cuda.synchronize()
         after = kernel_counts()
-        tiles.append(dict(padded_shape=list(observed.shape), iterations=int(n),
-                          seconds=time.perf_counter() - t0,
+        pad_width = rlgc.linear_fft_pad_width(tuple(image.shape), rlgc._as_psf(psf).shape)
+        tiles.append(dict(padded_shape=[m + b + a for m, (b, a) in zip(image.shape, pad_width)],
+                          iterations=int(n), seconds=time.perf_counter() - t0,
                           launches={k: after[k] - before.get(k, 0) for k in after if after[k] != before.get(k, 0)}))
-        return recon, n
+        return recon
 
-    rlgc._rlgc_core = recorded
+    rlgc.rlgc = recorded
     try:
         with plain_versions() if plain else contextlib.nullcontext(), context():
             before = kernel_counts()
@@ -1405,7 +1406,7 @@ def camera_frame_route(image, psf, *, plain: bool, crop_yx=2048, max_iters: int 
                         peak_device_bytes=int(torch.cuda.max_memory_allocated()),
                         launches=sum(after.values()) - sum(before.values()))
     finally:
-        rlgc._rlgc_core = core
+        rlgc.rlgc = solve
 
 
 def camera_frame_solve(image, psf) -> dict:

@@ -1,12 +1,11 @@
 """Region properties of decoded components (counterpart of the numpy
-half of ``merfish3d_tpu/ops/cc.py``: :class:`SparseIntensity`,
-:func:`component_stats_host`, :func:`inertia_tensor_eigvals`).
+half of ``merfish3d_tpu/ops/cc.py``: :func:`component_stats_host`,
+:func:`inertia_tensor_eigvals`).
 
 Copied rather than imported: the JAX package cannot be imported without
-JAX. On host arrays it is numpy, paired with the native union-find
-labelling in :mod:`merfish3d_tpu_torch.native`; on tensors the sums come
-from :mod:`.components` on the tensors' device, and numpy only derives
-the statistics from the rows that come down.
+JAX. The sums come from :mod:`.components` on the tensors' device (the
+card's kernels, or their plain versions on a CPU tensor), and numpy only
+derives the statistics from the rows that come down.
 """
 
 from __future__ import annotations
@@ -19,31 +18,12 @@ import torch
 from .components import GEOMETRY_COLUMNS, component_sums
 
 
-class SparseIntensity:
-    """Foreground-only per-bit intensities: sorted linear indices plus
-    ``(bits, n_fg)`` values, gathered on the device right after the
-    decode so only foreground values cross to the host. Callers may
-    gather any subset of the stored foreground."""
-
-    def __init__(self, fg_lin: np.ndarray, values: np.ndarray):
-        order = np.argsort(fg_lin, kind="stable")
-        self._lin = fg_lin[order]
-        self._vals = values[:, order]
-        self.nbits = int(values.shape[0])
-
-    def __call__(self, lin: np.ndarray) -> np.ndarray:
-        if lin.size == 0:
-            return np.zeros((self.nbits, 0), np.float32)
-        pos = np.searchsorted(self._lin, lin)
-        return self._vals[:, pos].astype(np.float32)
-
-
 def component_stats_host(
-    decoded,  # (Z, Y, X) int array, or int16 tensor
-    labels,  # (Z, Y, X) int64 root indices (-1 bg) or sparse (lin, roots)
-    distance,
-    magnitude,
-    scaled,  # (bits, Z, Y, X) array OR callable lin -> (bits, n_fg), or tensor
+    decoded: torch.Tensor,  # (Z, Y, X) int16, -1 background
+    labels: tuple[torch.Tensor, torch.Tensor],  # label_components' (lin, roots)
+    distance: torch.Tensor,  # (Z, Y, X) float16
+    magnitude: torch.Tensor,  # (Z, Y, X) float16
+    scaled: torch.Tensor,  # (bits, Z, Y, X) float16 or float32
     *,
     collect_weighted_centroids: bool = False,
     size_window: Optional[tuple[float, float]] = None,
@@ -56,89 +36,19 @@ def component_stats_host(
     per-bit centroids). With ``size_window = (least, most)`` only the
     components of that many voxels are returned.
 
-    Host arrays take the numpy sums (``np.bincount``). Tensors (the
-    labels of :func:`..ops.components.label_components`, float16 distance
-    and magnitude, the (bits, Z, Y, X) intensity tensor) take
-    :func:`..ops.components.component_sums` on their device, the same sums
-    bit for bit, and only the window's rows come to the host."""
-    if isinstance(decoded, torch.Tensor):
-        rows = component_sums(
-            decoded, labels, distance, magnitude, scaled,
-            weighted=collect_weighted_centroids, size_window=size_window,
-        )
-        bits, g = scaled.shape[0], len(GEOMETRY_COLUMNS)
-        sums = {name: rows[:, i] for i, name in enumerate(GEOMETRY_COLUMNS)}
-        sums["codeword"] = sums["codeword"].astype(np.int32)
-        sums["bits"] = rows[:, g:g + bits].T
-        if collect_weighted_centroids:
-            sums["bits_zyx"] = rows[:, g + bits:].reshape(-1, bits, 3).transpose(1, 0, 2)
-        return _stats_from_sums(sums, collect_weighted_centroids)
-
-    shape = decoded.shape
-    ny, nx = shape[1], shape[2]
-    if isinstance(labels, tuple):
-        lin = np.asarray(labels[0])
-        roots_fg = np.asarray(labels[1])
-    else:
-        flat_labels = np.asarray(labels).ravel()
-        lin = np.flatnonzero(flat_labels >= 0)
-        roots_fg = None
-    if lin.size == 0:
-        bits = scaled.nbits if callable(scaled) else scaled.shape[0]
-        empty = np.zeros(0, np.float32)
-        return {
-            "valid": np.zeros(0, bool),
-            "area": empty,
-            "centroid_zyx": np.zeros((0, 3), np.float32),
-            "codeword": np.zeros(0, np.int32),
-            "distance_min": empty,
-            "magnitude_mean": empty,
-            "bit_means": np.zeros((bits, 0), np.float32),
-            "bit_sums": np.zeros((bits, 0), np.float32),
-            "bit_w_coord_sums": np.zeros((bits, 0, 3), np.float32),
-            "moments": np.zeros((0, 6), np.float32),
-        }
-    roots = roots_fg if roots_fg is not None else flat_labels[lin]
-    uniq, first_idx, idx = np.unique(roots, return_index=True, return_inverse=True)
-    n = len(uniq)
-    z = (lin // (ny * nx)).astype(np.float64)
-    rem = lin % (ny * nx)
-    y = (rem // nx).astype(np.float64)
-    x = (rem % nx).astype(np.float64)
-
-    def wsum(v):
-        return np.bincount(idx, weights=v, minlength=n)
-
-    dist_fg = np.asarray(distance).ravel()[lin].astype(np.float64)
-    order = np.lexsort((dist_fg, idx))
-    first_of = np.searchsorted(idx[order], np.arange(n))
-    sums = {
-        "area": wsum(np.ones_like(z)),
-        "z": wsum(z), "y": wsum(y), "x": wsum(x),
-        "zz": wsum(z * z), "yy": wsum(y * y), "xx": wsum(x * x),
-        "zy": wsum(z * y), "zx": wsum(z * x), "yx": wsum(y * x),
-        "magnitude_sum": wsum(np.asarray(magnitude).ravel()[lin].astype(np.float64)),
-        "distance_min": dist_fg[order][first_of],
-        "codeword": np.asarray(decoded).ravel()[lin[first_idx]].astype(np.int32),
-    }
-
-    if callable(scaled):
-        bits = scaled.nbits
-        bit_fg = np.asarray(scaled(lin), np.float64)
-    else:
-        bits = scaled.shape[0]
-        # gather the foreground first, widen second
-        bit_fg = np.stack(
-            [np.asarray(scaled[b]).ravel()[lin].astype(np.float64) for b in range(bits)]
-        )
-    sums["bits"] = np.stack([wsum(bit_fg[b]) for b in range(bits)])
+    The sums are :func:`..ops.components.component_sums` on the tensors'
+    device, the JAX package's ``np.bincount`` sums bit for bit, and only
+    the window's rows come to the host."""
+    rows = component_sums(
+        decoded, labels, distance, magnitude, scaled,
+        weighted=collect_weighted_centroids, size_window=size_window,
+    )
+    bits, g = scaled.shape[0], len(GEOMETRY_COLUMNS)
+    sums = {name: rows[:, i] for i, name in enumerate(GEOMETRY_COLUMNS)}
+    sums["codeword"] = sums["codeword"].astype(np.int32)
+    sums["bits"] = rows[:, g:g + bits].T
     if collect_weighted_centroids:
-        sums["bits_zyx"] = np.stack(
-            [np.stack([wsum(bit_fg[b] * c) for c in (z, y, x)], axis=-1) for b in range(bits)]
-        )
-    if size_window is not None:
-        keep = (sums["area"] >= size_window[0]) & (sums["area"] <= size_window[1])
-        sums = {k: v[..., keep, :] if k == "bits_zyx" else v[..., keep] for k, v in sums.items()}
+        sums["bits_zyx"] = rows[:, g + bits:].reshape(-1, bits, 3).transpose(1, 0, 2)
     return _stats_from_sums(sums, collect_weighted_centroids)
 
 

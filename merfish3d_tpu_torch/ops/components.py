@@ -3,10 +3,10 @@ volume and their sums, where the decode left its outputs.
 
 :func:`label_components` finds the 26-connected components of equal
 codeword over the foreground (``decoded >= 0``) and returns them in the
-sparse form of :func:`merfish3d_tpu_torch.native.label_components_sparse`:
-the foreground's linear indices in scan order and each voxel's root. The
-root is the component's smallest linear index, so sorting by root orders
-the components as the host labeller numbers them.
+sparse form of the native host labeller (:mod:`merfish3d_tpu_torch.native`,
+the tests' oracle): the foreground's linear indices in scan order and each
+voxel's root. The root is the component's smallest linear index, so
+sorting by root orders the components as the host labeller numbers them.
 
 :func:`component_sums` takes those labels and returns, for the components
 within a size window, every sum :func:`..ops.cc.component_stats_host`

@@ -24,8 +24,7 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..utils.profiling import count, to_device, to_host
-from .cc import SparseIntensity
+from ..utils.profiling import count, to_device
 from .device import as_device_tensor
 from .decode import (
     assign_pixels,
@@ -253,14 +252,6 @@ def fused_lowpass_decode(
     )
 
 
-def gather_values(volume: torch.Tensor, lin: np.ndarray) -> np.ndarray:
-    """(bits, n) float32 host values of a (bits, Z, Y, X) device volume at
-    flat voxel indices — only the foreground crosses to the host."""
-    flat = volume.reshape(volume.shape[0], -1)
-    idx = to_device(np.asarray(lin, np.int64), volume.device)
-    return to_host(flat.index_select(1, idx).to(torch.float32))
-
-
 def fused_decode_volume(
     bit_volume,  # (bits, Z, Y, X) tensor or array
     codebook_matrix: np.ndarray,  # (words, bits) raw 0/1
@@ -272,8 +263,8 @@ def fused_decode_volume(
     distance_threshold: float,
     y_slab: int = 512,
     memory_budget_bytes: int = 12 << 30,
-    scaled_as: str = "array",
     device=None,
+    on_device: bool = False,
 ):
     """Run the fused pipeline on the whole volume when its working set
     (input + f32 intermediate + f16 outputs ≈ 3× the f32 input) fits
@@ -281,15 +272,10 @@ def fused_decode_volume(
     on each side (each slab's true edges reflect in the kernel, so the
     result equals the whole-volume one).
 
-    Returns host numpy (decoded int16, magnitude f16, distance f16,
-    scaled): ``scaled_as="array"`` gives the dense f16 (bits, Z, Y, X)
-    volume, ``"gather"`` a :class:`SparseIntensity` of the scaled values
-    at the decoded voxels, gathered on the device. ``scaled_as="device"``
-    returns all four as tensors on the decode's device, the scaled values
-    as the dense f16 volume, and downloads nothing. ``device`` defaults to
-    the input tensor's, and to ``cuda`` for a host array."""
-    if scaled_as not in ("array", "gather", "device"):
-        raise ValueError(f"scaled_as must be 'array', 'gather' or 'device', got {scaled_as!r}")
+    Returns host numpy arrays (decoded int16, magnitude f16, distance
+    f16, scaled f16 (bits, Z, Y, X)); with ``on_device`` the same four as
+    tensors on the decode's device, and nothing is downloaded. ``device``
+    defaults to the input tensor's, and to ``cuda`` for a host array."""
     vol = as_device_tensor(bit_volume, device).to(torch.float32).contiguous()
     dev = vol.device
     bits, nz, ny, nx = vol.shape
@@ -301,27 +287,15 @@ def fused_decode_volume(
         magnitude_threshold=tuple(magnitude_threshold),
         distance_threshold=float(distance_threshold),
     )
-    gather = scaled_as == "gather"
+    empty, put = output_sink(dev, on_device)
     if 3 * vol.numel() * 4 <= memory_budget_bytes:
-        d, m, di, s = fused_lowpass_decode(vol, cb_t, bg, norm, **kw)
-        if scaled_as == "device":
-            return d, m, di, s
-        decoded = to_host(d)
-        if gather:
-            lin = np.flatnonzero(decoded >= 0)
-            return decoded, to_host(m), to_host(di), SparseIntensity(
-                lin, gather_values(s, lin)
-            )
-        return decoded, to_host(m), to_host(di), to_host(s)
+        return tuple(put(t) for t in fused_lowpass_decode(vol, cb_t, bg, norm, **kw))
 
     ry = int(4.0 * sigma[1] + 0.5) if sigma[1] > 0 else 0
-    empty, put = output_sink(dev, scaled_as == "device")
     decoded = empty((nz, ny, nx), "int16")
     mag = empty((nz, ny, nx), "float16")
     dist = empty((nz, ny, nx), "float16")
-    fg_lins: list[np.ndarray] = []
-    fg_vals: list[np.ndarray] = []
-    scaled = None if gather else empty((bits, nz, ny, nx), "float16")
+    scaled = empty((bits, nz, ny, nx), "float16")
     for y0 in range(0, ny, y_slab):
         y1 = min(y0 + y_slab, ny)
         ys, ye = max(0, y0 - ry), min(ny, y1 + ry)
@@ -329,26 +303,8 @@ def fused_decode_volume(
             vol[:, :, ys:ye].contiguous(), cb_t, bg, norm, **kw
         )
         lo, hi = y0 - ys, y1 - ys
-        d_slab = put(d)
-        decoded[:, y0:y1] = d_slab[:, lo:hi]
+        decoded[:, y0:y1] = put(d[:, lo:hi])
         mag[:, y0:y1] = put(m[:, lo:hi])
         dist[:, y0:y1] = put(di[:, lo:hi])
-        if gather:
-            f = np.flatnonzero(d_slab[:, lo:hi] >= 0)
-            if f.size:
-                h = y1 - y0
-                z_f, y_f, x_f = f // (h * nx), (f % (h * nx)) // nx, f % nx
-                slab_lin = (z_f * d_slab.shape[1] + lo + y_f) * nx + x_f
-                fg_vals.append(gather_values(s, slab_lin))
-                fg_lins.append((z_f * ny + y0 + y_f) * nx + x_f)
-        else:
-            scaled[:, :, y0:y1] = put(s[:, :, lo:hi])
-    if not gather:
-        return decoded, mag, dist, scaled
-    if fg_lins:
-        return decoded, mag, dist, SparseIntensity(
-            np.concatenate(fg_lins), np.concatenate(fg_vals, axis=1)
-        )
-    return decoded, mag, dist, SparseIntensity(
-        np.zeros(0, np.int64), np.zeros((bits, 0), np.float32)
-    )
+        scaled[:, :, y0:y1] = put(s[:, :, lo:hi])
+    return decoded, mag, dist, scaled

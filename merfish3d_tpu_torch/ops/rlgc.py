@@ -21,10 +21,11 @@ exits. In PyTorch's idiom:
   device→host read an iteration (both KLDs, the restore flag and K5's
   three statistics) for the stop decision; the restore flag itself is
   computed on the device, so K5 does not wait for the host;
-- pairing (:func:`rlgc_batch` ``pair=True``, the reference's default)
-  solves two volumes at a time with every convolution packed as one
-  complex pair, and retires a converged slot and reloads it with the next
-  volume on the host;
+- every solve, of one volume (:func:`rlgc`) or many (:func:`rlgc_batch`),
+  runs one retire-and-reload loop: two volumes at a time with every
+  convolution packed as one complex pair (the reference's default
+  pairing), a converged slot retired and reloaded with the next volume on
+  the host; a single volume takes one slot;
 - the splits come from a ``torch.Generator`` on the volume's device,
   seeded from (volume seed, iteration): JAX's threefry bits cannot be
   reproduced, so a solve is held to the reference statistically, or with
@@ -71,7 +72,6 @@ MIN_STOP_ITERS = 3
 # batch and crop choices (set there for a 16 GB v5e).
 DEFAULT_BUDGET_PADDED_VOXELS = 9.0e7
 SCAN_TOTAL_F32_BUDGET = 2.2e9
-_SCAN_WORKING_SET_BUFFERS = 10.0
 _PAIR_WORKING_SET_BUFFERS = 16.0
 MAX_SCAN_BATCH = 32
 
@@ -220,41 +220,6 @@ def _ratios_and_restore(slot: _Slot, hu, split_fn: SplitFn, seed: int, pad_width
     return r1, r2, klds, _restore_flag(*klds, slot, safe_mode)
 
 
-def _rlgc_core(
-    observed: torch.Tensor,
-    psf: np.ndarray,
-    seed: int,
-    *,
-    pad_width,
-    safe_mode: bool = True,
-    limit: float = 0.01,
-    max_delta: float = 0.001,
-    max_iters: int = 100,
-    split_fn: Optional[SplitFn] = None,
-    solve: Optional[_Solve] = None,
-):
-    """RLGC solve of one pre-padded volume. Returns (padded recon,
-    iterations)."""
-    split_fn = split_fn or binomial_split
-    solve = solve or _prepare_solve(observed.shape, psf, pad_width, observed.device)
-    slot = _load(0, observed, solve)
-    while not slot.done and slot.it < max_iters:
-        with profiling.span("rlgc.step"):
-            hu = fft_conv_full(slot.recon, solve.otf)
-            r1, r2, klds, restore = _ratios_and_restore(slot, hu, split_fn, seed, pad_width, safe_mode)
-            del hu
-            gr, gi = fft_conv_spec(r1, r2, solve.otf_t)
-            del r1, r2
-            ht1, ht2 = _split_ht(gr, gi, solve.update_norm)
-            del gr, gi
-            consensus = fft_conv_full((ht1 - 1.0) * (ht2 - 1.0), solve.otf2)
-            new_recon, new_prev, record = _update(consensus, slot, ht1 + ht2, restore, klds, pad_width)
-            with profiling.span("rlgc.read"):
-                values = profiling.read_list(record)
-            _advance(slot, new_recon, new_prev, values, solve.num_pixels, limit, max_delta)
-    return slot.recon, slot.it
-
-
 def _conv_pair(a, b, otf):
     """Convolve two real volumes with one packed complex convolution (the
     pack is exact: conv(a + ib, k) = conv(a, k) + i·conv(b, k) for a real
@@ -270,6 +235,7 @@ def _rlgc_queue_core(
     images: torch.Tensor,
     psf: np.ndarray,
     seeds,
+    retire: Callable[[int, torch.Tensor, int], None],
     *,
     pad_width,
     safe_mode: bool = True,
@@ -277,26 +243,34 @@ def _rlgc_queue_core(
     max_delta: float = 0.001,
     max_iters: int = 100,
     split_fn: Optional[SplitFn] = None,
-):
+) -> None:
     """RLGC solve of a batch of unpadded volumes (shared PSF), two slots at
-    a time with every convolution packed as a complex pair: per iteration
+    a time with every convolution packed as a complex pair (per iteration
     the forward pair, one adjoint pair a slot and the consensus pair, where
-    two single solves would run six convolutions. A converged (or capped)
-    slot retires: its recon lands in the output and it reloads the next
-    queued volume, so unequal iteration counts cost nothing. Returns
-    (recon stack (B, ...) unpadded, iterations per volume)."""
+    two single solves would run six convolutions). A converged (or capped)
+    slot retires, ``retire(volume, padded recon, iterations)``, and reloads
+    the next queued volume, so unequal iteration counts cost nothing. A
+    batch of one runs one slot, whose pairs are single convolutions."""
     split_fn = split_fn or binomial_split
     n_vol = images.shape[0]
     padded_shape = tuple(n + b + a for n, (b, a) in zip(images.shape[1:], pad_width))
     solve = _prepare_solve(padded_shape, psf, pad_width, images.device)
-    out = torch.empty(images.shape, dtype=torch.float32, device=images.device)
-    iters = [0] * n_vol
 
     def load(v: int) -> _Slot:
         return _load(v, pad_symmetric(images[v].to(torch.float32), pad_width), solve)
 
     queued = min(2, n_vol)
     slots: list = [load(v) for v in range(queued)] + [None] * (2 - queued)
+
+    def retire_done() -> None:
+        nonlocal queued
+        for i, slot in enumerate(slots):
+            while slot is not None and (slot.done or slot.it >= max_iters):
+                retire(slot.vol, slot.recon, slot.it)
+                slot = slots[i] = load(queued) if queued < n_vol else None
+                queued += 1
+
+    retire_done()  # a volume with no iteration to take retires as it loads
     while any(s is not None for s in slots):
         with profiling.span("rlgc.step"):
             hus = _conv_pair(*[None if s is None else s.recon for s in slots], solve.otf)
@@ -326,13 +300,7 @@ def _rlgc_queue_core(
                 values = profiling.read_list(torch.stack(records))
             for (slot, new_recon, new_prev), record in zip(steps, values):
                 _advance(slot, new_recon, new_prev, record, solve.num_pixels, limit, max_delta)
-            for i, slot in enumerate(slots):
-                if slot is not None and (slot.done or slot.it >= max_iters):
-                    out[slot.vol] = remove_padding_zyx(slot.recon, pad_width)
-                    iters[slot.vol] = slot.it
-                    slots[i] = load(queued) if queued < n_vol else None
-                    queued += 1
-    return out, iters
+            retire_done()
 
 
 # ------------------------------------------------------------ entry points
@@ -374,11 +342,17 @@ def rlgc(
         img = as_device_tensor(image, device).to(torch.float32)
         psf = _as_psf(psf)
         pad_width = linear_fft_pad_width(tuple(img.shape), psf.shape, pad_yx=pad_yx)
-        recon, iters = _rlgc_core(
-            pad_symmetric(img, pad_width), psf, seed, pad_width=pad_width, safe_mode=safe_mode,
+        solved = []
+
+        def retire(_vol, recon, n):
+            solved.append((remove_padding_zyx(recon, pad_width).contiguous(), n))
+
+        _rlgc_queue_core(
+            img[None], psf, [seed], retire, pad_width=pad_width, safe_mode=safe_mode,
             limit=limit, max_delta=max_delta, max_iters=max_iters, split_fn=split_fn,
         )
-        result = _result(remove_padding_zyx(recon, pad_width).contiguous(), out)
+        (recon, iters), = solved
+        result = _result(recon, out)
     return (result, iters) if return_iters else result
 
 
@@ -392,38 +366,33 @@ def rlgc_batch(
     max_delta: float = 0.001,
     max_iters: int = 100,
     out: str = "host",
-    pair: bool = True,
     device=None,
     split_fn: Optional[SplitFn] = None,
     return_iters: bool = False,
 ):
     """Deconvolve a batch of same-shaped volumes (e.g. the readout bits of
-    a tile that share a PSF); volume i is seeded ``seed + i``. ``pair``
-    runs the paired retire-and-reload solve for two or more volumes, the
-    reference's default; otherwise the volumes are solved one by one.
-    Integer data (u16) uploads as it is and is cast on the device.
-    ``return_iters`` also returns the iteration count of each volume."""
+    a tile that share a PSF) in the paired retire-and-reload solve, the
+    reference's default; volume i is seeded ``seed + i``. Integer data
+    (u16) uploads as it is and is cast on the device. ``return_iters``
+    also returns the iteration count of each volume."""
     with profiling.span("rlgc.solve"):
         if not isinstance(images, torch.Tensor):
             images = np.asarray(images)
         stack = as_device_tensor(images, device)
         psf = _as_psf(psf)
         pad_width = linear_fft_pad_width(tuple(stack.shape[1:]), psf.shape)
-        kw = dict(pad_width=pad_width, safe_mode=safe_mode, limit=limit, max_delta=max_delta,
-                  max_iters=max_iters, split_fn=split_fn)
-        seeds = [seed + i for i in range(stack.shape[0])]
-        if pair and stack.shape[0] >= 2:
-            result, iters = _rlgc_queue_core(stack, psf, seeds, **kw)
-        else:
-            result = torch.empty(stack.shape, dtype=torch.float32, device=stack.device)
-            iters = []
-            solve = None
-            for i in range(stack.shape[0]):
-                padded = pad_symmetric(stack[i].to(torch.float32), pad_width)
-                solve = solve or _prepare_solve(padded.shape, psf, pad_width, padded.device)
-                recon, n = _rlgc_core(padded, psf, seeds[i], solve=solve, **kw)
-                result[i] = remove_padding_zyx(recon, pad_width)
-                iters.append(n)
+        result = torch.empty(stack.shape, dtype=torch.float32, device=stack.device)
+        iters = [0] * stack.shape[0]
+
+        def retire(vol, recon, n):
+            result[vol] = remove_padding_zyx(recon, pad_width)
+            iters[vol] = n
+
+        _rlgc_queue_core(
+            stack, psf, [seed + i for i in range(stack.shape[0])], retire, pad_width=pad_width,
+            safe_mode=safe_mode, limit=limit, max_delta=max_delta, max_iters=max_iters,
+            split_fn=split_fn,
+        )
         result = _result(result, out)
     return (result, iters) if return_iters else result
 
@@ -494,18 +463,16 @@ def rlgc_diagnostics(
 
 
 # ---------------------------------------------------------------- budgets
-def max_vmap_batch(image_shape, psf_shape, budget_padded_voxels: Optional[float] = None,
-                   *, pair: bool = True) -> int:
+def max_vmap_batch(image_shape, psf_shape, budget_padded_voxels: Optional[float] = None) -> int:
     """How many volumes of this shape one :func:`rlgc_batch` call takes
-    (the reference's budget arithmetic; ``budget_padded_voxels`` keeps its
-    legacy total-padded-voxel form)."""
+    (the reference's budget arithmetic for its paired solve;
+    ``budget_padded_voxels`` keeps its legacy total-padded-voxel form)."""
     padded = 1
     for n, s in zip(image_shape, psf_shape):
         padded *= int(n) + sum(axis_linear_fft_padding(int(n), s))
     if budget_padded_voxels is not None:
         return max(1, int(budget_padded_voxels // padded))
-    ws = _PAIR_WORKING_SET_BUFFERS if pair else _SCAN_WORKING_SET_BUFFERS
-    b = int((SCAN_TOTAL_F32_BUDGET / padded - ws) // 2.0)
+    b = int((SCAN_TOTAL_F32_BUDGET / padded - _PAIR_WORKING_SET_BUFFERS) // 2.0)
     return max(1, min(b, MAX_SCAN_BATCH))
 
 

@@ -7,14 +7,13 @@ normalization loop also estimates the chromatic affines from the decoded
 transcripts after each pass (:mod:`.chromatic`), and the next pass
 decodes a stack warped with them.
 
-Device work runs on the decoder's ``device``. On CUDA, the optimization
-passes decode through kernel K3 (after the plain lowpass) and the final
-decode through the fused kernels K1+K2 — the split the reference makes
-on TPU — and the decode's outputs stay on the card, where the components
-are labelled and summed (``csrc/components.cu``); only the rows of the
-components within the size window come down. On CPU the decode takes
-the kernels' plain versions and extraction runs on the host (the native
-labeller and numpy sums), as in the reference.
+Device work runs on the decoder's ``device``. The optimization passes
+decode through kernel K3 (after the plain lowpass) and the final decode
+through the fused kernels K1+K2 — the split the reference makes on TPU —
+and the decode's outputs stay on the device, where the components are
+labelled and summed (``csrc/components.cu``); only the rows of the
+components within the size window come down. On a CPU device every
+kernel runs as its plain torch version, on the same route.
 
 Not ported: the mesh fan-out, multi-tile duplicate removal, the
 LR filter, 2D mode, masks, z ranges and on-disk resume of the
@@ -29,14 +28,13 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from .. import native
 from ..datastore.array_store import ArrayStore
 from ..models.ufish import median_last
-from ..ops.cc import SparseIntensity, component_stats_host, inertia_tensor_eigvals
+from ..ops.cc import component_stats_host, inertia_tensor_eigvals
 from ..ops.components import label_components
 from ..ops.decode import caller_thresholds, decode_volume
 from ..ops.filters import gaussian_lowpass
-from ..ops.fused_decode import fused_decode_volume, gather_values
+from ..ops.fused_decode import fused_decode_volume
 from ..utils import profiling
 from ..utils.profiling import read_scalar, to_device, to_host
 from . import decode_warping
@@ -154,10 +152,6 @@ class PixelDecoder:
         # (tile, the store's chromatic and flow versions): every calibration
         # save and every flow-field write makes the warped stack stale
         self._warped_memo: Optional[tuple[tuple[int, int, int], torch.Tensor]] = None
-        # on the card the decode's outputs stay there and the components are
-        # labelled and summed there; on the CPU they go through the host's
-        # labeller and numpy sums
-        self._extract_on_device = self._device.type == "cuda"
 
     # ------------------------------------------------------------- codebook
     def _load_codebook(self) -> None:
@@ -312,33 +306,26 @@ class PixelDecoder:
     # --------------------------------------------------------------- decode
     def _device_decode(self, stack: torch.Tensor, *, lowpass_sigma, optimize: bool):
         """Lowpass + nearest-codeword decode of one tile's stack. Returns
-        (decoded, magnitude, distance, intensities): the scaled traces for
-        the final decode, the raw lowpassed intensities during
-        normalization optimization. With ``_extract_on_device`` all four
-        are tensors on the device (the intensities dense), else host
-        arrays with a :class:`SparseIntensity`."""
+        (decoded, magnitude, distance, intensities) as tensors on the
+        device: the dense scaled traces for the final decode, the dense
+        raw lowpassed intensities during normalization optimization."""
         norm, bg = self._prepare_normalization_state()
         nb = self._n_merfish_bits
         sigma = tuple(float(s) for s in lowpass_sigma)
         kw = dict(
             magnitude_threshold=self._magnitude_threshold,
             distance_threshold=self._pixel_distance_threshold,
+            on_device=True,
         )
-        on_device = self._extract_on_device
         if not optimize:
             return fused_decode_volume(
-                stack, self._codebook_matrix, bg[:nb], norm[:nb],
-                sigma=sigma, scaled_as="device" if on_device else "gather", **kw,
+                stack, self._codebook_matrix, bg[:nb], norm[:nb], sigma=sigma, **kw
             )
         lp = gaussian_lowpass(stack, sigma=sigma)
         decoded, mag, dist, _ = decode_volume(
-            lp, self._codebook_matrix, bg[:nb], norm[:nb], return_scaled=False,
-            on_device=on_device, **kw
+            lp, self._codebook_matrix, bg[:nb], norm[:nb], return_scaled=False, **kw
         )
-        if on_device:
-            return decoded, mag, dist, lp
-        lin = np.flatnonzero(decoded >= 0)
-        return decoded, mag, dist, SparseIntensity(lin, gather_values(lp, lin))
+        return decoded, mag, dist, lp
 
     def decode_one_tile(
         self, tile_idx: int, *, lowpass_sigma=DEFAULT_DECODE_LOWPASS_SIGMA,
@@ -359,15 +346,8 @@ class PixelDecoder:
         """Connected components + region features → decoded-features
         table, in the reference's column order."""
         with profiling.span("decoder.extract"):
-            if isinstance(decoded, torch.Tensor):
-                label = label_components
-            else:
-                decoded = np.ascontiguousarray(decoded, np.int32)
-                distance = np.asarray(distance, np.float32)
-                magnitude = np.asarray(magnitude, np.float32)
-                label = native.label_components_sparse
             with profiling.span("decoder.extract.label"):
-                labels = label(decoded)
+                labels = label_components(decoded)
             with profiling.span("decoder.extract.stats"):
                 stats = component_stats_host(
                     decoded,

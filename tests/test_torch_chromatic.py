@@ -235,8 +235,9 @@ def test_fit_degenerate_inputs_match_reference():
 
 # ---------------------------------------------------- centroid statistics
 def test_component_stats_weighted_centroids_exact():
-    """bit_sums and bit_w_coord_sums equal the reference's, with dense and
-    sparse labels and dense and gathered intensities."""
+    """bit_sums and bit_w_coord_sums of the port, on tensors, equal the
+    reference's with dense and sparse labels and dense and gathered
+    intensities."""
     import scipy.ndimage
 
     rng = np.random.default_rng(5)
@@ -246,25 +247,24 @@ def test_component_stats_weighted_centroids_exact():
     lin = np.arange(decoded.size).reshape(shape)
     roots = scipy.ndimage.minimum(lin, comp, index=np.arange(1, n + 1)).astype(np.int64)
     labels = np.where(comp > 0, roots[np.maximum(comp, 1) - 1], -1)
-    distance = rng.random(shape).astype(np.float32)
-    magnitude = rng.random(shape).astype(np.float32)
+    distance = rng.random(shape).astype(np.float16)
+    magnitude = rng.random(shape).astype(np.float16)
     scaled = rng.random((6,) + shape).astype(np.float32)
     fg = np.flatnonzero(labels.ravel() >= 0)
     sparse_labels = (fg, labels.ravel()[fg])
+    kw = dict(collect_weighted_centroids=True)
+    args = (torch.as_tensor(distance), torch.as_tensor(magnitude), torch.as_tensor(scaled))
+    dec_t = torch.as_tensor(decoded.astype(np.int16))
+    got = tcc.component_stats_host(dec_t, tuple(torch.as_tensor(a) for a in sparse_labels), *args, **kw)
     for lab in (labels, sparse_labels):
-        for intensity in (scaled, None):
-            kw = dict(collect_weighted_centroids=True)
-            want = jcc.component_stats_host(
-                decoded, lab, distance, magnitude,
-                scaled if intensity is not None else jcc.SparseIntensity(fg, scaled.reshape(6, -1)[:, fg]), **kw)
-            got = tcc.component_stats_host(
-                decoded, lab, distance, magnitude,
-                scaled if intensity is not None else tcc.SparseIntensity(fg, scaled.reshape(6, -1)[:, fg]), **kw)
+        for intensity in (scaled, jcc.SparseIntensity(fg, scaled.reshape(6, -1)[:, fg])):
+            want = jcc.component_stats_host(decoded, lab, distance.astype(np.float32),
+                                            magnitude.astype(np.float32), intensity, **kw)
             assert sorted(got) == sorted(want)
             for key in want:
                 np.testing.assert_array_equal(got[key], want[key], err_msg=key)
-    empty = tcc.component_stats_host(decoded, np.full(shape, -1), distance, magnitude, scaled,
-                                     collect_weighted_centroids=True)
+    no_labels = (torch.zeros(0, dtype=torch.int64), torch.zeros(0, dtype=torch.int64))
+    empty = tcc.component_stats_host(dec_t, no_labels, *args, **kw)
     assert empty["bit_w_coord_sums"].shape == (6, 0, 3)
 
 

@@ -289,7 +289,7 @@ def test_wrappers_refuse_bad_input(cuda):
 def test_slab_streaming_on_card_matches_whole_volume(cuda):
     """y-slab streaming with halos launches K1+K2 per slab; it must give
     the whole-volume result exactly (same kernels, same arithmetic per
-    voxel), dense and gathered."""
+    voxel), on the host and on the card."""
     rng = np.random.default_rng(3)
     cb = _codebook(rng)
     vol = (rng.random((16, 8, 100, 136)) * 2).astype(np.float32)
@@ -301,13 +301,14 @@ def test_slab_streaming_on_card_matches_whole_volume(cuda):
     nm = np.full(16, 40.0, np.float32)
     kw = dict(sigma=(3.0, 1.0, 1.0), magnitude_threshold=(0.9, 10.0), distance_threshold=0.5176)
     whole = fd.fused_decode_volume(vol, cb, bg, nm, **kw)
-    slabs = fd.fused_decode_volume(vol, cb, bg, nm, y_slab=32, memory_budget_bytes=0,
-                                   scaled_as="gather", **kw)
-    for a, b in zip(whole[:3], slabs[:3]):
+    slabs = fd.fused_decode_volume(vol, cb, bg, nm, y_slab=32, memory_budget_bytes=0, **kw)
+    on_card = fd.fused_decode_volume(vol, cb, bg, nm, y_slab=32, memory_budget_bytes=0,
+                                     on_device=True, **kw)
+    assert (whole[0] >= 0).sum() > 1000
+    for a, b, c in zip(whole, slabs, on_card):
         np.testing.assert_array_equal(a, b)
-    lin = np.flatnonzero(whole[0].ravel() >= 0)
-    assert lin.size > 1000
-    np.testing.assert_array_equal(slabs[3](lin), whole[3].reshape(16, -1)[:, lin].astype(np.float32))
+        assert c.device.type == "cuda"
+        np.testing.assert_array_equal(a, c.cpu().numpy())
 
 
 def test_decode_volume_on_card_matches_cpu(cuda, launches):
@@ -725,14 +726,15 @@ def _stats_inputs(shape, *, bits, half, seed=0):
 
 
 def _host_stats(decoded, dist, mag, vals, **kw):
-    """``component_stats_host`` through the host path: native labels,
-    numpy sums."""
-    from merfish3d_tpu_torch import native
+    """``component_stats_host`` on CPU tensors, as the decoder runs it on
+    the CPU: the plain sums, over the native labeller's components (its
+    labels in the form ``label_components`` gives)."""
     from merfish3d_tpu_torch.ops.cc import component_stats_host
+    from torch_extract_cases import native_roots
 
-    dec32 = decoded.astype(np.int32)
-    return component_stats_host(dec32, native.label_components_sparse(dec32), dist.astype(np.float32),
-                                mag.astype(np.float32), vals, **kw)
+    labels = tuple(torch.as_tensor(a) for a in native_roots(decoded))
+    return component_stats_host(torch.as_tensor(decoded), labels, torch.as_tensor(dist),
+                                torch.as_tensor(mag), torch.as_tensor(vals), **kw)
 
 
 def _card_stats(cuda, decoded, dist, mag, vals, **kw):
@@ -767,8 +769,9 @@ def test_component_sums_match_host_bit_for_bit(cuda, launches, half, weighted, w
 @pytest.mark.parametrize("weighted", [False, True])
 def test_component_sums_at_tile_size(cuda, launches, weighted):
     """A production tile's size, 16 bits of float16 (the final decode's
-    scaled values), the decoder's window: bit-equal to the host, twice;
-    ``extract.components`` counts every component before the window."""
+    scaled values), the decoder's window: bit-equal to the CPU's plain
+    sums, twice; ``extract.components`` counts every component before the
+    window, on the CPU and on the card alike."""
     from merfish3d_tpu_torch.utils import profiling
     from torch_extract_cases import native_roots, spot_volume
 
@@ -776,6 +779,7 @@ def test_component_sums_at_tile_size(cuda, launches, weighted):
     inputs = _stats_inputs(decoded.shape, bits=16, half=True, seed=5)
     kw = dict(collect_weighted_centroids=weighted, size_window=(16.0, 500.0))
     want = _host_stats(decoded, *inputs, **kw)
+    counted = profiling.snapshot()["counters"]["extract.components"]["total"]
     got = _card_stats(cuda, decoded, *inputs, **kw)
     again = _card_stats(cuda, decoded, *inputs, **kw)
     assert len(want["area"]) > 1000
@@ -784,39 +788,47 @@ def test_component_sums_at_tile_size(cuda, launches, weighted):
         np.testing.assert_array_equal(again[k], want[k], err_msg=k)
     n_components = np.unique(native_roots(decoded)[1]).size
     counters = profiling.snapshot()["counters"]
-    assert counters["extract.components"]["total"] == 2 * n_components
+    assert counted == n_components
+    assert counters["extract.components"]["total"] == 3 * n_components
     assert launches("component_sums_f64") == 2
 
 
 def test_decoder_tables_on_card_match_host_route(cuda, launches):
-    """A small tile decoded on the card: the tables through the device
-    extraction equal, row for row and value for value, those through the
-    host extraction the decoder takes on the CPU, with the chromatic
-    centroids."""
-    import copy
-
+    """A small tile decoded on the card, with the chromatic centroids:
+    every extraction's labels and statistics equal, row for row and value
+    for value, those the CPU decoder's route computes (the plain labeller
+    and sums) on host copies of the same decode."""
     from merfish3d_tpu_torch.cli.simulation.convert_simulation_to_experiment import generate_raw_experiment
     from merfish3d_tpu_torch.cli.simulation.convert_to_datastore import convert_data
+    from merfish3d_tpu_torch.ops import components as comp
+    from merfish3d_tpu_torch.pipeline import decoder as decoder_module
     from merfish3d_tpu_torch.pipeline.decoder import PixelDecoder
     from merfish3d_tpu_torch.pipeline.registration import DataRegistration
 
     store = convert_data(generate_raw_experiment(shape=(12, 96, 96), seed=11, distribution="cells"), device=cuda)
     DataRegistration(store, device=cuda, decon_fiducial=False, decon_readout=False,
                      ufish_model="dog").register_all_tiles()
-    tables = []
-    for on_device in (False, True):
-        s = copy.deepcopy(store)
-        decoder = PixelDecoder(s, device=cuda, minimum_pixels=4, magnitude_threshold=(0.9, 10.0),
-                               estimate_chromatic_affines=True)
-        decoder._extract_on_device = on_device
-        decoder.optimize_normalization_by_decoding(n_random_tiles=1, n_iterations=2)
-        filtered = decoder.decode_all_tiles()
-        tables.append([*(s.iteration_checkpoints[i][0] for i in sorted(s.iteration_checkpoints)),
-                       s.decoded_tables[0], filtered])
-    assert launches("label_components_i16") == launches("component_sums_f64") == 3
-    for got, want in zip(*tables[::-1]):
-        assert list(got) == list(want) and len(want["area"]) > 20
+    stats = decoder_module.component_stats_host
+    rows = []
+
+    def checked(decoded, labels, *tensors, **kw):
+        got = stats(decoded, labels, *tensors, **kw)
+        host = [t.cpu() for t in (decoded, *tensors)]
+        host_labels = comp.label_components(host[0])
+        for a, b in zip(labels, host_labels):
+            assert torch.equal(a.cpu(), b)
+        want = stats(host[0], host_labels, *host[1:], **kw)
+        assert list(got) == list(want)
         for k in want:
-            a, b = np.asarray(got[k]), np.asarray(want[k])
-            assert a.dtype == b.dtype, k
-            assert np.array_equal(a, b, equal_nan=a.dtype.kind == "f"), k
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        rows.append(len(want["area"]))
+        return got
+
+    decoder = PixelDecoder(store, device=cuda, minimum_pixels=4, magnitude_threshold=(0.9, 10.0),
+                           estimate_chromatic_affines=True)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(decoder_module, "component_stats_host", checked)
+        decoder.optimize_normalization_by_decoding(n_random_tiles=1, n_iterations=2)
+        decoder.decode_all_tiles()
+    assert len(rows) == 3 and min(rows) > 20
+    assert launches("label_components_i16") == launches("component_sums_f64") == 3

@@ -1,14 +1,14 @@
 """Component extraction on tensors (merfish3d_tpu_torch/ops/components.py)
-against the host path, on CPU.
+against the JAX package, on CPU.
 
 The plain torch labeller gives the native labeller's components
 (``native.label_components_sparse``) in the native labeller's order, and
 the JAX package's ``label_connected`` roots; the plain torch sums give
 the JAX package's ``component_stats_host`` statistics bit for bit, with
 and without weighted centroids and the size window; the decode functions' device
-returns equal their host returns; and a CPU ``PixelDecoder`` gives the same
-tables through the tensor route as through the host route it takes by
-default.
+returns equal their host returns; and every extraction of a CPU
+``PixelDecoder``'s passes and final decode gives the JAX package's
+statistics of the same decode.
 """
 
 import copy
@@ -27,6 +27,7 @@ from merfish3d_tpu_torch.ops import components as comp
 from merfish3d_tpu_torch.ops.cc import component_stats_host
 from merfish3d_tpu_torch.ops.decode import decode_volume
 from merfish3d_tpu_torch.ops.fused_decode import fused_decode_volume
+from merfish3d_tpu_torch.pipeline import decoder as decoder_module
 from merfish3d_tpu_torch.pipeline.decoder import PixelDecoder
 from merfish3d_tpu_torch.pipeline.registration import DataRegistration
 from merfish3d_tpu_torch.utils import profiling
@@ -96,11 +97,15 @@ def test_plain_sums_match_host_bit_for_bit(weighted, window, half):
 def test_host_window_selects_the_rows_of_the_whole_table():
     decoded = random_volume((4, 20, 20), fg=0.4, words=2, seed=4)
     dist, mag, vals = _inputs(decoded, bits=3)
-    args = (decoded.astype(np.int32), native.label_components_sparse(decoded.astype(np.int32)),
-            dist.astype(np.float32), mag.astype(np.float32), vals)
-    whole = jax_component_stats_host(*args, collect_weighted_centroids=True)
-    part = component_stats_host(*args, collect_weighted_centroids=True, size_window=(3, 10))
+    whole = jax_component_stats_host(
+        decoded.astype(np.int32), native.label_components_sparse(decoded.astype(np.int32)),
+        dist.astype(np.float32), mag.astype(np.float32), vals, collect_weighted_centroids=True,
+    )
+    t = torch.as_tensor(decoded)
+    part = component_stats_host(t, comp.label_components(t), torch.as_tensor(dist), torch.as_tensor(mag),
+                                torch.as_tensor(vals), collect_weighted_centroids=True, size_window=(3, 10))
     keep = (whole["area"] >= 3) & (whole["area"] <= 10)
+    assert 0 < keep.sum() < keep.size
     _assert_same_stats(part, _select(whole, keep))
 
 
@@ -178,8 +183,8 @@ def test_fused_decode_on_device_matches_host(slabs):
     kw = dict(distance_threshold=0.6, magnitude_threshold=(0.5, 10.0), device="cpu")
     if slabs:
         kw.update(y_slab=8, memory_budget_bytes=0)
-    host = fused_decode_volume(vol, cb, bg, nm, scaled_as="array", **kw)
-    dev = fused_decode_volume(vol, cb, bg, nm, scaled_as="device", **kw)
+    host = fused_decode_volume(vol, cb, bg, nm, **kw)
+    dev = fused_decode_volume(vol, cb, bg, nm, on_device=True, **kw)
     for h, d in zip(host, dev):
         assert isinstance(d, torch.Tensor)
         np.testing.assert_array_equal(d.numpy(), h)
@@ -194,48 +199,61 @@ def registered_store():
     return store
 
 
-def _decode_tables(store, *, tensor_route: bool, chromatic: bool):
+def _decode_with_jax_statistics(store, *, chromatic: bool):
+    """A CPU decoder's two passes and final decode, each extraction's
+    statistics held, bit for bit, to the JAX package's
+    ``component_stats_host`` on host copies of the same inputs, with the
+    native labeller's labels and the size window applied. Returns the
+    tables, the counters and the number of extractions."""
+    calls = []
+
+    def checked(decoded, labels, distance, magnitude, scaled, *, collect_weighted_centroids, size_window):
+        got = component_stats_host(decoded, labels, distance, magnitude, scaled,
+                                   collect_weighted_centroids=collect_weighted_centroids,
+                                   size_window=size_window)
+        dec32 = decoded.numpy().astype(np.int32)
+        want = jax_component_stats_host(
+            dec32, native.label_components_sparse(dec32), distance.numpy().astype(np.float32),
+            magnitude.numpy().astype(np.float32), scaled.numpy().astype(np.float32),
+            collect_weighted_centroids=collect_weighted_centroids,
+        )
+        want = _select(want, (want["area"] >= size_window[0]) & (want["area"] <= size_window[1]))
+        assert len(want["area"]) > 20
+        _assert_same_stats({k: got[k] for k in want}, want)
+        assert sorted(got) == sorted(want)
+        calls.append(collect_weighted_centroids)
+        return got
+
     decoder = PixelDecoder(store, device="cpu", minimum_pixels=4, magnitude_threshold=(0.9, 10.0),
                            estimate_chromatic_affines=chromatic)
-    decoder._extract_on_device = tensor_route
     profiling.enable()
     profiling.reset()
     try:
-        decoder.optimize_normalization_by_decoding(n_random_tiles=1, n_iterations=2)
-        filtered = decoder.decode_all_tiles()
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(decoder_module, "component_stats_host", checked)
+            decoder.optimize_normalization_by_decoding(n_random_tiles=1, n_iterations=2)
+            filtered = decoder.decode_all_tiles()
         counters = profiling.snapshot()["counters"]
     finally:
         profiling.enable(False)
         profiling.reset()
     passes = [store.iteration_checkpoints[it][0] for it in sorted(store.iteration_checkpoints)]
-    return [*passes, store.decoded_tables[0], filtered], counters
-
-
-def _assert_same_table(got: dict, want: dict):
-    assert list(got) == list(want)
-    for k in want:
-        a, b = np.asarray(got[k]), np.asarray(want[k])
-        assert a.dtype == b.dtype, k
-        if a.dtype.kind == "f":
-            np.testing.assert_array_equal(a, b, err_msg=k)
-        else:
-            assert np.array_equal(a, b), k
+    return [*passes, store.decoded_tables[0], filtered], counters, calls
 
 
 @pytest.mark.parametrize("chromatic", [False, True])
-def test_decoder_tensor_route_matches_host_route(registered_store, chromatic):
-    """The CPU decoder's tables through its host route (the default on the
-    CPU) and through the tensor route the card takes, here on the plain
-    versions: equal, row for row and value for value."""
-    host, host_counts = _decode_tables(copy.deepcopy(registered_store), tensor_route=False, chromatic=chromatic)
-    dev, dev_counts = _decode_tables(copy.deepcopy(registered_store), tensor_route=True, chromatic=chromatic)
-    assert len(host) == len(dev) == 4
-    assert all(len(t["area"]) > 20 for t in host)
+def test_decoder_extraction_matches_jax_statistics(registered_store, chromatic):
+    """Every extraction of a CPU decoder (two passes and the final decode,
+    with and without the chromatic centroids) runs the tensor route the
+    card runs, here on the plain versions, and its statistics equal the
+    JAX package's on the same decode; only the window's rows come down."""
+    tables, counters, calls = _decode_with_jax_statistics(copy.deepcopy(registered_store),
+                                                          chromatic=chromatic)
+    assert calls == [chromatic, chromatic, False]
+    assert len(tables) == 4 and all(len(t["area"]) > 20 for t in tables)
     if chromatic:
-        assert "bit01_center_z" in host[0]
-    for got, want in zip(dev, host):
-        _assert_same_table(got, want)
-    assert "extract.components" not in host_counts
-    assert dev_counts["extract.components"]["total"] >= sum(len(t["area"]) for t in host[:3])
-    # the tensor route downloads the rows alone: none of the dense volumes
-    assert dev_counts["copy.d2h_bytes"]["total"] < host_counts["copy.d2h_bytes"]["total"]
+        assert "bit01_center_z" in tables[0]
+    assert counters["extract.components"]["total"] >= sum(len(t["area"]) for t in tables[:3])
+    # the decode's outputs never cross: only the window's rows come down
+    d2h = counters["copy.d2h_bytes"]["by_span"]
+    assert not {"decoder.pass", "decoder.final"} & set(d2h) and d2h["decoder.extract.stats"] > 0

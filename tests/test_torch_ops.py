@@ -176,8 +176,9 @@ def test_fused_lowpass_decode_matches_pallas_interpret():
 
 
 def test_fused_decode_volume_streaming_gather_matches_jax():
-    """Slab streaming with symmetric halos and the foreground gather, both
-    packages, on a shape no slab divides."""
+    """Slab streaming with symmetric halos, both packages, on a shape no
+    slab divides: the port's slabbed host arrays against the reference's
+    foreground gather at the decoded voxels."""
     from jax.experimental.pallas import tpu as pltpu
 
     cb, vol, bg, nm = _volume_case(5, (16, 4, 44, 140))
@@ -185,22 +186,21 @@ def test_fused_decode_volume_streaming_gather_matches_jax():
     with pltpu.force_tpu_interpret_mode():
         ref = jfused.fused_decode_volume(vol, cb, bg, nm, y_slab=16, hbm_budget_bytes=0,
                                          scaled_as="gather", **kw)
-    whole = tfused.fused_decode_volume(vol, cb, bg, nm, scaled_as="array", device="cpu", **kw)
+    whole = tfused.fused_decode_volume(vol, cb, bg, nm, device="cpu", **kw)
     slabbed = tfused.fused_decode_volume(vol, cb, bg, nm, y_slab=16, memory_budget_bytes=0,
-                                         scaled_as="gather", device="cpu", **kw)
+                                         device="cpu", **kw)
     # slab streaming reproduces the whole-volume decode exactly
-    np.testing.assert_array_equal(slabbed[0], whole[0])
-    np.testing.assert_array_equal(slabbed[1], whole[1])
+    for s, w in zip(slabbed, whole):
+        np.testing.assert_array_equal(s, w)
     lin = np.flatnonzero(whole[0].ravel() >= 0)
     assert lin.size > 100
-    dense = whole[3].reshape(16, -1)[:, lin].astype(np.float32)
-    np.testing.assert_array_equal(slabbed[3](lin), dense)
     lp = np.asarray(jfilt.gaussian_lowpass(jnp.asarray(vol), sigma=kw["sigma"]))
     _near_tie_only(np.flatnonzero(slabbed[0].ravel() != ref[0].ravel()),
                    lp.reshape(16, -1), cb, bg, nm)
     common = np.intersect1d(lin, np.flatnonzero(ref[0].ravel() >= 0))
     # bf16 (TPU) vs f16 (port) storage
-    np.testing.assert_allclose(slabbed[3](common), ref[3](common), rtol=2**-7, atol=2e-3)
+    np.testing.assert_allclose(slabbed[3].reshape(16, -1)[:, common].astype(np.float32), ref[3](common),
+                               rtol=2**-7, atol=2e-3)
     np.testing.assert_allclose(slabbed[1].astype(np.float32), np.asarray(ref[1], np.float32),
                                rtol=2**-7, atol=2e-3)
 
@@ -242,10 +242,6 @@ def test_fused_wrappers_refuse_bad_input():
         tfused.fused_lowpass_decode(torch.zeros((16, 4, 8, 8)).transpose(2, 3), cbt, z, z + 1)
     with pytest.raises(ValueError):
         tfused.zy_lowpass_cuda(torch.zeros((16, 4, 8, 8)), (1.0, 1.0, 1.0))
-    with pytest.raises(ValueError):
-        tfused.fused_decode_volume(np.zeros((16, 2, 8, 8), np.float32), mhd4_codebook(),
-                                   np.zeros(16), np.ones(16), distance_threshold=0.5,
-                                   scaled_as="dense", device="cpu")
 
 
 def test_z_fold_matrix_is_the_padded_conv():
@@ -260,27 +256,32 @@ def test_z_fold_matrix_is_the_padded_conv():
 
 # ------------------------------------------------------------ components
 def test_component_stats_host_exact():
+    """The port's statistics, on tensors labelled by ``label_components``,
+    against the JAX package's on its native labels, with dense and
+    gathered intensities; the two labellings are the same components in
+    the same order."""
     from merfish3d_tpu.native import label_components_sparse as jlabel
-    from merfish3d_tpu_torch.native import label_components_sparse as tlabel
+    from merfish3d_tpu_torch.ops.components import label_components
 
     rng = np.random.default_rng(6)
     decoded = np.where(rng.random((6, 30, 30)) < 0.3, rng.integers(0, 5, (6, 30, 30)), -1)
     decoded = decoded.astype(np.int32)
-    dist = rng.random(decoded.shape).astype(np.float32)
-    mag = rng.random(decoded.shape).astype(np.float32)
+    dist = rng.random(decoded.shape).astype(np.float16)
+    mag = rng.random(decoded.shape).astype(np.float16)
     scaled = rng.random((16,) + decoded.shape).astype(np.float32)
-    lab_j, lab_t = jlabel(decoded), tlabel(decoded)
-    np.testing.assert_array_equal(lab_t[0], lab_j[0])
-    np.testing.assert_array_equal(lab_t[1], lab_j[1])
-    lin = lab_t[0]
-    for sparse in (False, True):
-        if sparse:
-            ref_i = jcc.SparseIntensity(lin, scaled.reshape(16, -1)[:, lin])
-            out_i = tcc.SparseIntensity(lin, scaled.reshape(16, -1)[:, lin])
-        else:
-            ref_i = out_i = scaled
-        ref = jcc.component_stats_host(decoded, lab_j, dist, mag, ref_i)
-        out = tcc.component_stats_host(decoded, lab_t, dist, mag, out_i)
+    lab_j = jlabel(decoded)
+    dec_t = torch.as_tensor(decoded.astype(np.int16))
+    lab_t = label_components(dec_t)
+    np.testing.assert_array_equal(lab_t[0].numpy(), lab_j[0])
+    np.testing.assert_array_equal(np.unique(lab_t[1].numpy(), return_inverse=True)[1],
+                                  np.unique(lab_j[1], return_inverse=True)[1])
+    out = tcc.component_stats_host(dec_t, lab_t, torch.as_tensor(dist), torch.as_tensor(mag),
+                                   torch.as_tensor(scaled))
+    lin = lab_j[0]
+    for ref_i in (scaled, jcc.SparseIntensity(lin, scaled.reshape(16, -1)[:, lin])):
+        ref = jcc.component_stats_host(decoded, lab_j, dist.astype(np.float32),
+                                       mag.astype(np.float32), ref_i)
+        assert sorted(out) == sorted(ref)
         for key, value in out.items():
             np.testing.assert_array_equal(value, ref[key], err_msg=key)
     np.testing.assert_array_equal(

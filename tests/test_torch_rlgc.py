@@ -255,20 +255,31 @@ def test_rlgc_batch_statistically_matches_jax():
 
 # ------------------------------------------------------ (g) pairing
 def test_paired_solve_matches_unpaired():
-    """The paired retire-and-reload solve against one-by-one solves with
-    the same generators, odd batch included: the same iteration counts,
-    recons within the reference's own pair tolerance (rtol 1e-4, atol
-    1e-3: the packed convolution rounds differently)."""
+    """The paired retire-and-reload solve against one single-volume solve
+    a volume, seeded as the batch seeds it, odd batch included: the same
+    iteration counts, recons within the reference's own pair tolerance
+    (rtol 1e-4, atol 1e-3: the packed convolution rounds differently)."""
     obs = np.stack([observed_counts(seed=s, background=5.0) for s in range(3)])
     psf = gaussian_psf()
-    kw = dict(seed=7, max_iters=12, device="cpu", return_iters=True)
-    paired, it_p = trlgc.rlgc_batch(obs, psf, pair=True, **kw)
-    single, it_s = trlgc.rlgc_batch(obs, psf, pair=False, **kw)
-    assert it_p == it_s
-    np.testing.assert_allclose(paired, single, rtol=1e-4, atol=1e-3)
-    np.testing.assert_allclose(
-        single[1], trlgc.rlgc(obs[1], psf, seed=8, max_iters=12, device="cpu"), rtol=1e-6, atol=1e-6
-    )
+    kw = dict(max_iters=12, device="cpu", return_iters=True)
+    paired, it_p = trlgc.rlgc_batch(obs, psf, seed=7, **kw)
+    singles = [trlgc.rlgc(v, psf, seed=7 + i, **kw) for i, v in enumerate(obs)]
+    assert it_p == [n for _, n in singles]
+    np.testing.assert_allclose(paired, np.stack([r for r, _ in singles]), rtol=1e-4, atol=1e-3)
+
+
+def test_no_iteration_returns_the_flat_start():
+    """``max_iters=0``: every volume, single or batched, retires as it
+    loads, at its flat interior mean with 0 iterations (the reference's
+    loop takes no step either)."""
+    obs = np.stack([observed_counts(seed=s, background=5.0) for s in range(3)])
+    psf = gaussian_psf()
+    single, n = trlgc.rlgc(obs[0], psf, max_iters=0, device="cpu", return_iters=True)
+    batch, iters = trlgc.rlgc_batch(obs, psf, max_iters=0, device="cpu", return_iters=True)
+    assert n == 0 and iters == [0, 0, 0]
+    np.testing.assert_array_equal(batch[0], single)
+    for got, vol in zip(batch, obs):
+        np.testing.assert_allclose(got, np.full(vol.shape, vol.mean()), rtol=1e-5)
 
 
 # ------------------------------------------------ (h) tiling and budgets
@@ -300,10 +311,6 @@ def test_budgets_and_bounds_match_reference(monkeypatch):
         for budget in (None, 1.4e8):
             assert trlgc.max_vmap_batch(shape, psf_shape, budget) == \
                 jrlgc.max_vmap_batch(shape, psf_shape, budget)
-        assert trlgc.max_vmap_batch(shape, psf_shape, pair=False) == \
-            int(min(max((jrlgc.SCAN_TOTAL_F32_BUDGET / np.prod(
-                [n + sum(tfft.axis_linear_fft_padding(n, s)) for n, s in zip(shape, psf_shape)])
-                - 10.0) // 2, 1), 32))
         assert trlgc.auto_crop_yx(shape, psf_shape) == jrlgc.auto_crop_yx(shape, psf_shape)
 
 
